@@ -1,18 +1,10 @@
-"""Any-length FFT demo: the TPU-tiered strategy for non-power-of-two n.
+"""Any-length FFT demo: non-power-of-two n.
 
 The reference supports powers of two only (stage count = log2(fft_len),
-fft_wgpu src/processor.rs:327).  This framework covers every length with
-a tiered strategy, all verified here against numpy:
-
-  * pow2 in [128, 16384]        -> fused balanced Pallas kernels
-  * composite, factors <= 128   -> single-pass generic two-factor kernel
-                                   (n = 4095 = 63*65: ONE HBM round trip)
-  * prime / big-prime factors   -> FUSED Bluestein chirp-z (chirp+pad in
-                                   the forward kernel's load stage,
-                                   filter+slice+chirp in the inverse
-                                   kernel's load/store: ~2 fused m-sized
-                                   passes instead of ~6 composed)
-  * odd composite (real input)  -> single-pass general R2C kernel
+fft_wgpu src/processor.rs:327).  This framework covers every length: the
+default route is XLA's FFT (cuFFT on the GPU), which takes any n, and the
+chirp-z transform composes two power-of-two FFTs.  All verified here
+against numpy.
 
 Run: python examples/any_length.py
 """
@@ -37,26 +29,26 @@ def main():
     rng = np.random.default_rng(0)
     rows = 16
 
-    print("C2C, one tier per length class:")
+    print("C2C, one length per class:")
     for n, why in [
-        (4096, "pow2 -> fused balanced kernel"),
-        (4095, "63*65 -> single-pass generic kernel"),
-        (4093, "prime -> fused Bluestein"),
-        (4097, "17*241 (factor > 128) -> fused Bluestein"),
-        (1000, "25*40 -> single-pass generic kernel"),
+        (4096, "power of two"),
+        (4095, "63*65"),
+        (4093, "prime"),
+        (4097, "17*241"),
+        (1000, "25*40"),
     ]:
         x = (rng.standard_normal((rows, n))
              + 1j * rng.standard_normal((rows, n))).astype(np.complex64)
         got = ftt.device_get_complex(ftt.fft(x))
         check(f"fft n={n:5d} ({why})", got, np.fft.fft(x, axis=-1))
 
-    print("R2C on an odd composite length (no even-pack path exists):")
+    print("R2C on an odd composite length:")
     xr = rng.standard_normal((rows, 1005)).astype(np.float32)
     got = ftt.device_get_complex(ftt.rfft(xr))
-    check("rfft n=1005 (15*67 -> general R2C kernel)", got,
+    check("rfft n=1005 (15*67)", got,
           np.fft.rfft(xr, axis=-1))
 
-    print("CZT rides the same fused chirp kernels:")
+    print("CZT (chirp-z over power-of-two FFTs):")
     x = (rng.standard_normal((rows, 700))
          + 1j * rng.standard_normal((rows, 700))).astype(np.complex64)
     import scipy.signal as sig
@@ -65,7 +57,7 @@ def main():
     check("czt 700 -> 450 bins", got,
           sig.czt(np.asarray(x, np.complex128), m=450), tol=1e-4)
 
-    print("all any-length tiers verified")
+    print("all lengths verified")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Forward FFT example + micro-bench.
 
 Parity with the reference's examples/basic.rs (E1, SURVEY §2): 2500 rows x
-512 points, repeated transform loop with timing — but measured the TPU way:
-the replay loop is chained on device inside one jit (the reference times
+512 points, repeated transform loop with timing — the replay loop is
+chained on device inside one jit (the reference times
 H2D + readback every iteration, examples/basic.rs:70-129; here the host
 boundary is crossed once on each side).
 """

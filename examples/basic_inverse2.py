@@ -28,8 +28,8 @@ def main():
     nrm = ftt.Normalize(n)
     two_pass = jax.jit(lambda v: nrm.proc(only.proc(v)))
 
-    # complex data enters the device as planar f32 (some TPU runtimes cannot
-    # transfer complex arrays), then composes freely under jit
+    # complex data enters the device as planar f32, then composes freely
+    # under jit
     xd = ftt.device_put_complex(x)
     y = ftt.device_get_complex(two_pass(xd))
     ref = np.fft.ifft(x, axis=-1)

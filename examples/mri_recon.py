@@ -7,7 +7,7 @@ classic non-Cartesian imaging pipeline, all on the framework:
     k-space data  y_j = (type-2 NUFFT)(image)        [forward model]
     recon         x^  = (type-1 NUFFT)(w_j * y_j)    [adjoint + DCF]
 
-Run: python examples/mri_recon.py   (CPU or TPU; prints PSNR)
+Run: python examples/mri_recon.py   (CPU or GPU; prints PSNR)
 """
 import sys
 import os

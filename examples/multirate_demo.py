@@ -3,11 +3,11 @@ resample an audio-style signal, decimate, and route stock jnp.fft call
 sites through the framework.
 
 New capability vs the reference (a bare batched FFT, SURVEY §2): the
-full scipy.signal multirate surface on the TPU FFT path —
+full scipy.signal multirate surface on the library's FFT path —
 firwin/firwin2 design, FFT-based upfirdn, resample_poly, decimate —
-plus the opt-in jnp.fft accelerator.
+plus the opt-in jnp.fft router.
 
-Run (CPU is fine): PYTHONPATH=/root/repo JAX_PLATFORMS=cpu python examples/multirate_demo.py
+Run (CPU is fine): PYTHONPATH=. JAX_PLATFORMS=cpu python examples/multirate_demo.py
 """
 
 import os

@@ -7,7 +7,7 @@ step, one jitted lax.scan program over every device on the mesh.
 Run on the 8-device virtual CPU mesh:
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/ns3d_dns.py
-(on a real TPU slice the same code shards over the physical mesh).
+(on several GPUs the same code shards over the physical mesh).
 """
 
 import os

@@ -23,8 +23,7 @@ def main():
 
     t0 = time.perf_counter()
     plan = ftt.plan(4096).warmup(batch_shape=(1024,))
-    # also warm the host<->device transfer path (first H2D/D2H over a
-    # remote runtime can stall for minutes; a tiny round trip absorbs it)
+    # also warm the host<->device transfer path with a tiny round trip
     z = np.zeros((1, 4096), np.complex64)
     _ = ftt.device_get_complex(plan.forward(z))
     print(f"warmup (compile or cache hit): {time.perf_counter()-t0:.1f}s")

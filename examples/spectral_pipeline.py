@@ -1,13 +1,8 @@
-"""Spectral-analysis serving pipeline on the fused TPU kernels.
+"""Spectral-analysis serving pipeline: welch, coherence, spectrogram,
+stft round trip, a matched filter and the fast dot-precision mode, each
+one jitted program over the library's batched R2C.
 
-Round-5 surface demo: everything here runs the single-pass fused
-segment-spectrum kernels (ops/pallas_welch.py — framing, detrend,
-window, R2C, |.|^2 and the segment reduction in ONE HBM pass;
-PERFORMANCE.md round-5c/5e) plus the fused convolution epilogue and
-the fast dot-precision serving mode.
-
-Run on the TPU host:  python examples/spectral_pipeline.py
-(also works on CPU via the composed fallbacks — same results, slower.)
+Run:  python examples/spectral_pipeline.py   (GPU or CPU)
 """
 
 import os
@@ -29,7 +24,7 @@ def main():
          + 0.3 * rng.standard_normal(t.size)).astype(np.float32)
     y = (0.7 * x + 0.3 * rng.standard_normal(t.size)).astype(np.float32)
 
-    # ---- Welch PSD (fused accumulator: one kernel pass, 3.07x) ----
+    # ---- Welch PSD ----
     f, pxx = ftt.welch(x, fs=fs, nperseg=4096)
     fa, pa = np.asarray(f), np.asarray(pxx)
     p440 = fa[np.argmax(np.where((fa > 300) & (fa < 600), pa, 0.0))]
@@ -38,17 +33,17 @@ def main():
           f"(expect 440, 1250)")
     assert abs(p440 - 440.0) < 5 and abs(p1250 - 1250.0) < 5
 
-    # ---- coherence (single fused sweep: Pxy, Pxx, Pyy together) ----
+    # ---- coherence (Pxy, Pxx, Pyy) ----
     f, cxy = ftt.coherence(x, y, fs=fs, nperseg=4096)
     c440 = float(np.asarray(cxy)[np.argmin(np.abs(np.asarray(f) - 440.0))])
     print(f"coherence at 440 Hz: {c440:.3f} (strong: tone is shared)")
     assert c440 > 0.9
 
-    # ---- spectrogram (per-segment fused power spectra) ----
+    # ---- spectrogram (per-segment power spectra) ----
     f, tt, S = ftt.spectrogram(x, fs=fs, nperseg=1024, noverlap=512)
     print(f"spectrogram: {np.asarray(S).shape} (bins x segments)")
 
-    # ---- STFT round trip (fused framed-R2C; scatter-free OLA back) ----
+    # ---- STFT round trip (framed R2C; scatter-free OLA back) ----
     Z = ftt.stft(x[: 1 << 16], n_fft=512, hop_length=128)
     xr = np.asarray(ftt.istft(Z, n_fft=512, hop_length=128,
                               length=1 << 16))
@@ -56,19 +51,18 @@ def main():
     print(f"stft->istft roundtrip rel-L2: {err:.2e}")
     assert err < 1e-5
 
-    # ---- matched filter via oaconvolve (fused product-C2R epilogue +
-    #      scatter-free overlap-add: 64x over the old scatter form) ----
+    # ---- matched filter via oaconvolve (scatter-free overlap-add) ----
     h = np.sin(2 * np.pi * 440.0 * np.arange(129) / fs).astype(np.float32)
     det = np.asarray(ftt.oaconvolve(x, h[::-1].copy(), mode="same"))
     print(f"matched filter output power: {float((det**2).mean()):.3f}")
 
-    # ---- serving mode: trade 3 decimal digits for kernel speed ----
-    with ftt.dot_precision("fast"):  # 1-pass bf16 MXU dots
+    # ---- fast dot precision: the matmul executors at DEFAULT (TF32 on
+    #      an H100); welch runs on lax.fft, so nothing changes here ----
+    with ftt.dot_precision("fast"):
         f, pxx_fast = ftt.welch(x, fs=fs, nperseg=4096)
     rel = (np.linalg.norm(np.asarray(pxx_fast) - np.asarray(pxx))
            / np.linalg.norm(np.asarray(pxx)))
-    print(f"fast-precision welch vs accurate: rel {rel:.1e} "
-          f"(headline kernels run ~1.2-1.5x faster in this mode)")
+    print(f"fast-precision welch vs accurate: rel {rel:.1e}")
     assert rel < 0.05
 
 

@@ -7,8 +7,6 @@ coded demo; this exposes the framework's operational surface instead:
     selftest     quick oracle check of the core paths on this backend
     export-plan  serialize a plan's executors to an AOT artifact
     bench        full benchmark harness (delegates to bench.py)
-    tune         measure balanced-split candidates for this device and
-                 persist the winners (plan/autotune.tune_balanced)
 """
 
 from __future__ import annotations
@@ -25,12 +23,16 @@ def _cmd_info(args) -> int:
     from fft_wgpu_tpu.utils.roofline import hbm_bandwidth
 
     dev = jax.devices()[0]
+    try:  # published peak; null for a kind without one (e.g. the CPU)
+        bw = round(hbm_bandwidth(dev) / 1e9, 1)
+    except ValueError:
+        bw = None
     info = {
         "version": ftt.__version__,
         "backend": jax.default_backend(),
         "device_kind": getattr(dev, "device_kind", str(dev)),
         "device_count": jax.device_count(),
-        "hbm_bandwidth_GBps": round(hbm_bandwidth(dev) / 1e9, 1),
+        "hbm_bandwidth_GBps": bw,
     }
     print(json.dumps(info))
     return 0
@@ -71,7 +73,7 @@ def _cmd_selftest(args) -> int:
     sx = rng.standard_normal(16 * sperseg).astype(np.float32)
     f1, p1 = ftt.welch(sx, nperseg=sperseg)
     f2, p2 = sig.welch(sx, nperseg=sperseg)
-    check("welch (fused on TPU)", np.asarray(p1), p2, tol=1e-4)
+    check("welch", np.asarray(p1), p2, tol=1e-4)
     print("selftest:", "PASS" if ok else "FAIL")
     return 0 if ok else 1
 
@@ -98,33 +100,6 @@ def _cmd_bench(args) -> int:
     return subprocess.run([sys.executable, path]).returncode
 
 
-def _cmd_tune(args) -> int:
-    from fft_wgpu_tpu.plan.autotune import (tune_ax0_tile, tune_balanced,
-                                            tune_fused_plane)
-    from fft_wgpu_tpu.utils.io import enable_persistent_compilation_cache
-
-    enable_persistent_compilation_cache()
-    rc = 0
-    for n in args.n:
-        try:
-            best = tune_balanced(n, rows=args.rows)
-            print(f"n={n}: {best}")
-        except (RuntimeError, ValueError) as e:
-            print(f"n={n}: {e}", file=sys.stderr)
-            rc = 1
-    if args.extras:
-        try:
-            lim = tune_fused_plane()
-            print(f"fused-plane envelope: {lim}")
-            for n in (256, 512, 1024):
-                lt = tune_ax0_tile(n)
-                print(f"ax0 n={n}: lane tile {lt}")
-        except RuntimeError as e:
-            print(f"extras: {e}", file=sys.stderr)
-            rc = 1
-    return rc
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m fft_wgpu_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -136,17 +111,10 @@ def main(argv=None) -> int:
     ep.add_argument("out")
     ep.add_argument("--batch", type=int, default=8)
     sub.add_parser("bench", help="full benchmark harness")
-    tn = sub.add_parser("tune", help="measure + persist balanced splits "
-                                     "for this device")
-    tn.add_argument("n", type=int, nargs="+")
-    tn.add_argument("--rows", type=int, default=1024)
-    tn.add_argument("--extras", action="store_true",
-                    help="also tune the ax0 lane tiles + fused-plane "
-                         "envelope for this device kind")
     args = ap.parse_args(argv)
     return {"info": _cmd_info, "selftest": _cmd_selftest,
             "export-plan": _cmd_export_plan, "bench": _cmd_bench,
-            "tune": _cmd_tune}[args.cmd](args)
+            }[args.cmd](args)
 
 
 if __name__ == "__main__":

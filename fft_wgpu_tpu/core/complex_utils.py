@@ -1,13 +1,10 @@
 """Split real/imag complex representation helpers.
 
-TPU-first design note: Pallas TPU kernels have no native complex dtype, and
-XLA on TPU lowers complex arithmetic to real ops anyway.  We therefore carry
-complex data as a pair of real arrays ``(re, im)`` through the whole compute
-path and expose a ``complex64`` facade only at the public API boundary.
+The split-domain executors carry complex data as a pair of real arrays
+``(re, im)`` and expose a ``complex64`` facade at the public API boundary.
 
 This mirrors the reference's interleaved ``Complex { real, imag }`` data model
-(fft_wgpu src/lib.rs:10-27) but in planar (split) form, which is the layout
-the 8x128 VPU and the MXU actually want.
+(fft_wgpu src/lib.rs:10-27) but in planar (split) form.
 """
 
 from __future__ import annotations
@@ -27,9 +24,8 @@ def _split_device(x):
 def split(x):
     """complex array -> (re, im) pair of real float32 arrays.
 
-    Host numpy complex input is split on the host (some TPU runtimes cannot
-    transfer complex arrays); device arrays are split under jit (eager
-    complex ops can be unsupported even where jitted ones work).
+    Host numpy complex input is split on the host (one threaded pass in the
+    native core); device arrays are split under jit.
     """
     if isinstance(x, np.ndarray) and np.iscomplexobj(x):
         from ..utils.native import host_split_complex
@@ -54,9 +50,7 @@ def _merge_device(re, im):
 def merge(re, im):
     """(re, im) pair -> complex64 array (explicit, x64-config-proof).
 
-    Jitted: on some TPU runtimes eager complex ops are unsupported even
-    though jit-compiled complex compute works.  Under an enclosing jit this
-    inlines for free.
+    Jitted; under an enclosing jit this inlines for free.
     """
     return _merge_device(jnp.asarray(re, jnp.float32), jnp.asarray(im, jnp.float32))
 
@@ -64,9 +58,8 @@ def merge(re, im):
 def promote_to_split(x):
     """Accept complex/real jnp or numpy input, return (re, im) float32 pair.
 
-    Host numpy input must go straight to :func:`split` (which splits complex
-    on the host) — `jnp.asarray` on host complex would be a complex H2D
-    transfer, which some TPU runtimes cannot do.
+    Host numpy input goes straight to :func:`split`, which splits complex
+    on the host.
     """
     if isinstance(x, (tuple, list)) and len(x) == 2:
         re, im = x

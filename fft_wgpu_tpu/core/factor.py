@@ -2,9 +2,8 @@
 
 The reference supports power-of-two lengths only (stage count =
 log2(fft_len), fft_wgpu src/processor.rs:327).  We generalize: any length
-whose prime factors are <= MAX_DIRECT runs the fast mixed-radix path; other
-lengths fall back to a direct O(N^2) DFT matmul (still correct, and on the
-MXU not even slow for N up to a few thousand).
+whose prime factors are <= MAX_DIRECT runs the mixed-radix recursion; other
+lengths fall back to Bluestein or a direct O(N^2) DFT matmul.
 """
 
 from __future__ import annotations
@@ -14,8 +13,7 @@ import math
 
 from ..utils import native
 
-# Largest base-case DFT executed as a single direct matmul.  128 matches the
-# MXU/VPU lane width; the planner prefers base factors of 128/64/32.
+# Largest base-case DFT executed as a single direct matmul in the recursion.
 MAX_DIRECT = 128
 
 

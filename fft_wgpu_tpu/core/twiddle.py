@@ -49,8 +49,8 @@ def dft_matrix_np(n: int, sign: int, dtype=np.float32):
 def twiddle_np(n1: int, n2: int, sign: int, transposed: bool = False, dtype=np.float32):
     """Four-step inter-factor twiddles ``tw[k1, n2] = exp(sign*2pi*i*k1*n2/(n1*n2))``.
 
-    ``transposed=True`` returns the [n2, k1] layout (for kernels that hold the
-    row-matrix transposed in VMEM).
+    ``transposed=True`` returns the [n2, k1] layout (for the recursion in
+    ops/stockham.py, which twiddles the transposed row-matrix).
     """
     n = n1 * n2
     tab = native.twiddle_f64(n1, n2, sign)

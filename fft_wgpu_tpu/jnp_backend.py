@@ -1,9 +1,8 @@
 """Opt-in jax.numpy.fft acceleration: route ``jnp.fft.*`` through this
 framework's kernels.
 
-On TPU the stock XLA FFT decomposition is relayout-bound; the framework's
-fused Pallas paths are measured faster on every benchmark shape
-(BENCHMARKS.md "vs stock XLA jnp.fft" table).  Usage::
+Calls then run through the framework's plan layer (which itself calls
+`jax.lax.fft`, never `jnp.fft`, so routing does not recurse).  Usage::
 
     import fft_wgpu_tpu.jnp_backend as jb
 
@@ -14,8 +13,8 @@ fused Pallas paths are measured faster on every benchmark shape
         X = jnp.fft.fft(x)
 
 Works inside user ``jax.jit`` traces (the framework's internal jits
-inline) and under ``jax.grad`` (every kernel carries an exact linear
-adjoint via ``linear_call`` — see ROUND2_NOTES).  Per-call fallback to
+inline) and under ``jax.grad`` (the transforms differentiate through
+`lax.fft`'s own transpose rule).  Per-call fallback to
 stock jnp.fft when the input is 64-bit (the framework is f32-native) or
 the call uses a signature the framework doesn't express.
 

@@ -3,7 +3,7 @@
 A production-style spectral solver exercising the full R2C/C2R 2-D
 pipeline under `lax.scan` (everything in ONE jitted program — the
 reference's "record many transforms into one submission" pattern,
-fft_wgpu src/examples/basic_inverse2.rs:85-92, taken to its TPU
+fft_wgpu src/examples/basic_inverse2.rs:85-92, taken to its
 conclusion).  The reference ships no models (SURVEY §1); this module is
 part of the framework's model family alongside models/spectral.py.
 

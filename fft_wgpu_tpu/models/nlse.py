@@ -9,9 +9,9 @@ exact in Fourier space (multiply by exp(-i |k|^2 dt / 2)) — the canonical
 pseudo-spectral method for dispersive PDE, O(dt^2) in time and spectrally
 accurate in space.
 
-TPU design: state is the SPLIT (re, im) complex field; each rollout is
+Design: state is the SPLIT (re, im) complex field; each rollout is
 ONE jitted lax.scan over steps (CLAUDE.md: no eager chains) riding the
-batched fused C2C kernels; phase tables exp(-i k^2 dt/2) are f64-generated
+batched C2C transforms; phase tables exp(-i k^2 dt/2) are f64-generated
 on the host and cast once, like every trig table in this repo.  The
 reference ships no models (SURVEY §1); this extends the model family
 (FNO, Navier-Stokes 2-D/3-D, Burgers, KS, Poisson) with the standard

@@ -12,7 +12,7 @@ same splitting as models/navier_stokes.py lifted to 3-D.
 
 Every transform is a pencil-decomposed distributed 3-D R2C/C2R over a
 2-D `jax.sharding.Mesh` (`parallel/pencil.py`: shard_map + chunked
-all-to-all corner turns that overlap ICI with per-pencil compute), so a
+all-to-all corner turns that overlap with per-pencil compute), so a
 rollout scales to real multi-chip meshes; the whole rollout is ONE
 jitted `lax.scan` program.  9 distributed 3-D transforms per nonlinear
 evaluation (6 inverse + 3 forward), 18 per RK2 step — the classic
@@ -74,10 +74,10 @@ def ns3d_init(n: int, nu: float, dt: float, mesh=None,
     """Precompute spectral constants for an n^3 grid; `mesh` is the 2-D
     pencil mesh (default: all devices, `make_pencil_mesh()`).
 
-    `comm_dtype=bfloat16` runs every distributed transform's ICI corner
-    turn in bf16 (18 transforms/step are ~8x ICI-bound — see
-    parallel/pencil.fft3d): ~2x step throughput on real meshes for
-    ~1e-3 rel spectrum rounding per step.  Default exact f32.
+    `comm_dtype=bfloat16` runs every distributed transform's corner
+    turn in bf16 (half the wire bytes of the 18 transforms/step — see
+    parallel/pencil.fft3d) for ~1e-3 rel spectrum rounding per step.
+    Default exact f32.
 
     `transposed_spectra` (default True) keeps every spectrum in the
     transposed pencil distribution (rfft3d transposed_output paired with

@@ -56,7 +56,7 @@ def solve_poisson(f, lengths=None):
 def solve_poisson_distributed(f, mesh, lengths=None, *, comm_dtype=None):
     """Distributed 3-D Poisson solve via the pencil rfft3d/irfft3d pair.
 
-    Rides the transposed-spectrum round trip (4 ICI corner turns instead
+    Rides the transposed-spectrum round trip (4 corner turns instead
     of 8 — parallel/pencil.py): the spectral divide is elementwise on the
     natural logical array, so the distribution never matters.
     `comm_dtype=bfloat16` additionally halves the wire bytes (see fft3d)."""

@@ -1,12 +1,12 @@
-// Native host-side core for the TPU FFT framework.
+// Native host-side core for the FFT framework.
 //
-// Role (TPU-native analogue of the reference's Rust host layer):
+// Role (the analogue of the reference's Rust host layer):
 //   * f64 trigonometric table generation — mirrors the reference's host-side
 //     f64 twiddle precompute (fft_wgpu src/processor.rs:43-49) at full
 //     double precision before the single cast to f32 on the Python side.
 //   * mixed-radix plan factorization — the planning role the reference's
 //     pipeline factories play (src/processor.rs:161-229), picking the radix
-//     schedule that the JAX/Pallas executor then lowers onto the MXU.
+//     schedule of the JAX matmul recursion (ops/stockham.py).
 //
 // Exposed through a plain C ABI and loaded via ctypes (no pybind11).
 
@@ -70,82 +70,13 @@ int64_t fftcore_factorize(int64_t n, int64_t max_radix, int64_t* out,
   return (n == 1) ? cnt : -1;
 }
 
-// ---------------------------------------------------------------------
-// Plan scheduling: the native counterpart of the reference's plan
-// construction (Forward::new picking pipeline + dispatch geometry,
-// src/processor.rs:19-108).  Given a transform length and the device
-// envelope, pick the executor strategy and factor split.
-// ---------------------------------------------------------------------
-
-// Executor codes (keep in sync with plan/plan.py):
-//   0 = direct DFT matmul     (n <= max_direct)
-//   1 = fused Pallas kernel   (pow2, within [fused_min, fused_max])
-//   2 = two-pass four-step    (pow2, above fused_max)
-//   3 = mixed-radix XLA path  (smooth composite)
-//   4 = Bluestein chirp-z     (large prime factors)
-struct PlanChoice {
-  int64_t executor;
-  int64_t n1;
-  int64_t n2;
-};
-
-static bool is_pow2(int64_t n) { return n > 0 && (n & (n - 1)) == 0; }
-
-static int64_t smallest_prime_factor(int64_t n) {
-  for (int64_t d = 2; d * d <= n; ++d)
-    if (n % d == 0) return d;
-  return n;
-}
-
-extern "C" int64_t fftcore_plan(int64_t n, int64_t max_direct,
-                                int64_t fused_min, int64_t fused_max,
-                                int64_t bluestein_min, int64_t* out_n1,
-                                int64_t* out_n2) {
-  *out_n1 = 1;
-  *out_n2 = n;
-  if (n <= max_direct) return 0;
-  if (is_pow2(n)) {
-    if (n >= fused_min && n <= fused_max) {
-      *out_n1 = n / 128;
-      *out_n2 = 128;
-      return 1;
-    }
-    if (n > fused_max) {
-      int64_t e = 0;
-      for (int64_t v = n; v > 1; v >>= 1) ++e;
-      *out_n1 = 1LL << (e / 2);
-      *out_n2 = n / *out_n1;
-      return 2;
-    }
-  }
-  // smooth check: every prime factor <= max_direct
-  int64_t m = n;
-  while (m > 1) {
-    int64_t p = smallest_prime_factor(m);
-    if (p > max_direct) {
-      return (n >= bluestein_min) ? 4 : 0;
-    }
-    while (m % p == 0) m /= p;
-  }
-  // balanced split for the mixed-radix recursion
-  for (int64_t d = static_cast<int64_t>(std::sqrt(static_cast<double>(n)));
-       d >= 2; --d) {
-    if (n % d == 0) {
-      *out_n1 = d;
-      *out_n2 = n / d;
-      break;
-    }
-  }
-  return 3;
-}
-
 }  // extern "C"
 
 // ---------------------------------------------------------------------
 // Planar codec: host-side complex interleave <-> planar split.
 //
 // The serving boundary moves complex data as planar (re, im) float32
-// (some TPU runtimes cannot transfer complex arrays at all); numpy's
+// (the split-domain executors' layout); numpy's
 // z.real/z.imag does two strided passes and the merge allocates complex
 // temporaries.  These do it in one threaded pass each — the native
 // analogue of the reference's staging-buffer pack/unpack

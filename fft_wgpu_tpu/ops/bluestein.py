@@ -21,7 +21,7 @@ import numpy as np
 
 __all__ = ["fft_bluestein_split", "BLUESTEIN_MIN"]
 
-# below this, the direct O(n^2) DFT matmul on the MXU is faster and exact
+# below this, the recursion (ops/stockham.py) uses one direct O(n^2) DFT matmul
 BLUESTEIN_MIN = 512
 
 
@@ -57,40 +57,6 @@ def fft_bluestein_split(re, im, sign, scale=None):
     n = re.shape[-1]
     cr, ci, bfr, bfi, m = _chirp_np(n, sign)
 
-    # TPU fused path (VERDICT r3 item 3): the composed pipeline below is
-    # ~6 HBM passes (chirp multiply, pad, FFT, filter multiply, IFFT,
-    # post-chirp); the fused kernels cut it to ~2 m-sized passes — chirp
-    # multiply + zero-pad ride the forward kernel's load stage, the
-    # filter-spectrum multiply rides the inverse kernel's load stage, and
-    # the n-slice + post-chirp multiply ride its store stage (with the
-    # stage-2 dot cut to the contributing rows).  Reference anchor for
-    # the fused-epilogue idea: fft_wgpu src/kernel/ifft.wgsl:65-74;
-    # composition-in-one-submission: src/examples/basic_inverse2.rs:85-92.
-    import jax
-
-    if jax.default_backend() == "tpu":
-        try:  # guarded import first: an ImportError inside the main try
-            from . import pallas_fft as _pf  # would make the except
-        except ImportError:  # clause's _pf.Unsupported a NameError
-            _pf = None
-    else:
-        _pf = None
-    if _pf is not None:
-        try:
-            n_p = -(-n // 128) * 128  # 128-aligned in/out width
-            c_pad = np.zeros((2, n_p), np.float32)
-            c_pad[0, :n] = cr
-            c_pad[1, :n] = ci
-            pad = [(0, 0)] * (re.ndim - 1) + [(0, n_p - n)]
-            Ar, Ai = _pf.fft_chirp_forward_split(
-                jnp.pad(re, pad), jnp.pad(im, pad),
-                c_pad[0], c_pad[1], m, -1)
-            sc = (1.0 / m) * (1.0 if scale is None else float(scale))
-            yr, yi = _pf.fft_chirp_inverse_split(
-                Ar, Ai, bfr, bfi, c_pad[0], c_pad[1], n_p, +1, sc)
-            return yr[..., :n], yi[..., :n]
-        except _pf.Unsupported:
-            pass  # m outside the fused envelope: composed path below
     cr = jnp.asarray(cr)
     ci = jnp.asarray(ci)
     bfr = jnp.asarray(bfr)

@@ -67,8 +67,10 @@ def _der_coeffs(a):
     """Coefficient recurrence b_k of the derivative of series a (last
     axis): b_{k} = b_{k+2} + 2 (k+1) a_{k+1}, b at or above n are 0,
     with the k = 0 halving.  Evaluated closed-form (scan-free) as
-    b_k = sum_{j >= k+1, j-k odd} 2 j a_j via one [n+1, n+1] matmul —
-    MXU-friendly and O(n^2) only in the tiny coefficient dimension.
+    b_k = sum_{j >= k+1, j-k odd} 2 j a_j via one [n+1, n+1] matmul,
+    O(n^2) only in the tiny coefficient dimension.  The matmul runs at
+    HIGHEST precision: a GPU's DEFAULT (TF32, ~1e-3 relative) would lose
+    the spectral accuracy this is used for.
     """
     n = a.shape[-1] - 1
     k = np.arange(n + 1)
@@ -76,7 +78,8 @@ def _der_coeffs(a):
     M = ((j[None, :] > k[:, None]) & (((j[None, :] - k[:, None]) % 2) == 1)
          ).astype(np.float64) * (2.0 * j[None, :])
     M[0, :] *= 0.5
-    return a @ jnp.asarray(M.T.astype(np.float32))
+    return jnp.matmul(a, jnp.asarray(M.T.astype(np.float32)),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def cheb_derivative(u, order: int = 1, axis: int = -1,
@@ -135,4 +138,5 @@ def cheb_integrate(u, axis: int = -1, interval=(-1.0, 1.0)):
     u = jnp.asarray(u)
     w = clenshaw_curtis_weights(u.shape[axis] - 1, interval)
     # weights contract along `axis`
-    return jnp.tensordot(u, w, axes=[[axis % u.ndim], [0]])
+    return jnp.tensordot(u, w, axes=[[axis % u.ndim], [0]],
+                         precision=jax.lax.Precision.HIGHEST)

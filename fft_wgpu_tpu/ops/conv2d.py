@@ -5,8 +5,7 @@ scipy.signal parity layer (convolve2d / correlate2d / deconvolve / wiener /
 savgol_coeffs / savgol_filter / morlet).  The reference (fft_wgpu) has no
 convolution layer at all — these ride the framework's FFT kernels
 (`helpers.fftconvolve`) the way cuFFT-based stacks ride cufftExecC2C, so the
-hot path is the same fused Pallas transform pipeline benchmarked in
-BENCHMARKS.md.  Filter/window DESIGN (savgol_coeffs, morlet, edge-fit
+hot path is the library's own R2C/C2C pipeline.  Filter/window DESIGN (savgol_coeffs, morlet, edge-fit
 matrices) is host-side f64, matching the framework's trig-table rule
 (CLAUDE.md): device work is one jitted program per geometry.
 """
@@ -79,8 +78,8 @@ def _spectral_conv2d_full(ar, ai, br, bi):
 def _conv2d_impl(in1, in2, mode: str, boundary: str, fillvalue,
                  corr: bool = False):
     """Shared convolve2d/correlate2d engine: ONE jitted program per
-    geometry (pad + spectral convolution + crop all under trace — the
-    remote runtime pays a single dispatch), with complex inputs split on
+    geometry (pad + spectral convolution + crop all under trace — a
+    single dispatch), with complex inputs split on
     the host first (np.real/np.imag never touch the device)."""
     in1 = _as_host_or_device(in1)
     in2 = _as_host_or_device(in2)
@@ -197,7 +196,7 @@ def wiener(im, mysize=None, noise=None):
     parity): local mean/mean-square box windows via ONE jitted spectral
     program (the image transforms once, the box spectrum multiplies both
     moments — half the transforms of two separate convolutions, and one
-    dispatch instead of ~10 on the remote runtime).
+    dispatch instead of ~10).
 
     scipy computes the windows with `correlate(im, ones, 'same')` —
     which equals `convolve` with the flipped (== identical, symmetric box)
@@ -324,17 +323,18 @@ def savgol_filter(x, window_length: int, polyorder: int, deriv: int = 0,
 
     def impl(xv):
         # everything device-side in ONE traced program (pad, FIR pass,
-        # edge matmuls, edge scatter) — the remote runtime pays a single
-        # dispatch instead of one per eager op
+        # edge matmuls, edge scatter): one dispatch, not one per eager op
         xm = jnp.moveaxis(xv, axis, -1)
         pads = [(0, 0)] * (xm.ndim - 1) + [(halflen, halflen)]
         if mode == "interp":
             ext = jnp.pad(xm, pads)  # zero-extend; edges replaced below
             y = _fir_same(ext, coeffs)[..., halflen:halflen + n]
             Ej = jnp.asarray(E)
-            head = xm[..., :window_length] @ Ej[:halflen].T
-            tail = xm[..., n - window_length:] @ Ej[window_length
-                                                    - halflen:].T
+            hi = jax.lax.Precision.HIGHEST  # not TF32: f32 edge fits
+            head = jnp.matmul(xm[..., :window_length], Ej[:halflen].T,
+                              precision=hi)
+            tail = jnp.matmul(xm[..., n - window_length:],
+                              Ej[window_length - halflen:].T, precision=hi)
             y = y.at[..., :halflen].set(head)
             y = y.at[..., n - halflen:].set(tail)
         else:

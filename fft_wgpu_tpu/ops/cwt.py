@@ -3,13 +3,13 @@
     cwt(x, widths, wavelet="ricker")  ->  [len(widths), len(x)]
 
 scipy.signal.cwt semantics (removed from scipy 1.15; this is its
-TPU-native replacement): row i is `convolve(x, wavelet(N_i, w_i)[::-1].conj(),
+replacement here): row i is `convolve(x, wavelet(N_i, w_i)[::-1].conj(),
 mode="same")` with N_i = min(10*w_i, len(x)).  Instead of one direct
 convolution per scale, the whole filter bank is zero-padded to a common
 FFT length and applied as ONE batched spectral multiply: a single
 forward transform of the signal, a [W, nfft] batched wavelet transform,
 and one batched inverse — everything in one jitted program riding the
-framework's batched kernels (the MXU-friendly formulation of what scipy
+framework's batched transforms (the batched formulation of what scipy
 looped in Python).
 
 Wavelets: `ricker` (Mexican hat, real) and `morlet2` (complex Morlet,
@@ -83,17 +83,9 @@ def _build_bank(n, widths, wavelet, w):
 
 
 def _pick_nfft(lfull: int) -> int:
-    """Transform length: on TPU prefer the next power of two inside the
-    fused envelope (the bank kernel needs it); composite next_fast_len
-    otherwise."""
+    """Transform length: the next 5-smooth length (next_fast_len)."""
     from .helpers import next_fast_len
 
-    if jax.default_backend() == "tpu":
-        p = 1 << max(7, (lfull - 1).bit_length())
-        from . import pallas_fft as pf
-
-        if pf._supported(p):
-            return p
     return next_fast_len(lfull)
 
 
@@ -120,12 +112,8 @@ def cwt(x, widths, wavelet="ricker", *, w: float | None = None):
 
 class CWT:
     """Plan-style CWT: the filter-bank SPECTRUM is computed once at
-    build; each `apply(x)` is one small signal transform plus ONE fused
-    bank-sized pass (`pallas_fft.fft_bank_split`: the per-scale spectral
-    multiply is folded into the inverse kernel's load stage and the
-    signal spectrum is broadcast by index map, never materialized at
-    bank size).  The composed one-shot path pays ~3 bank-sized HBM
-    round trips per call; this pays ~1."""
+    build; each `apply(x)` is one small signal transform, the per-scale
+    spectral multiply and one bank-sized inverse transform."""
 
     def __init__(self, n: int, widths, wavelet="ricker", *,
                  w: float | None = None):
@@ -144,7 +132,6 @@ class CWT:
         self._jit = None
 
     def _build(self):
-        from . import pallas_fft as pf
         from .nd import fftn_split
 
         n, nfft, lmax = self.n, self.nfft, self._lmax
@@ -153,18 +140,9 @@ class CWT:
             xp = jnp.pad(x, (0, nfft - n))
             Xr, Xi = fftn_split(xp, jnp.zeros_like(xp), (0,), FORWARD,
                                 None)
-            if jax.default_backend() == "tpu" and pf._supported(nfft):
-                try:
-                    yr, yi = pf.fft_bank_split(Xr, Xi, Br, Bi, INVERSE,
-                                               1.0 / nfft)
-                except pf.Unsupported:
-                    yr = None
-            else:
-                yr = None
-            if yr is None:
-                Yr = Xr * Br - Xi * Bi
-                Yi = Xr * Bi + Xi * Br
-                yr, yi = fftn_split(Yr, Yi, (1,), INVERSE, 1.0 / nfft)
+            Yr = Xr * Br - Xi * Bi
+            Yi = Xr * Bi + Xi * Br
+            yr, yi = fftn_split(Yr, Yi, (1,), INVERSE, 1.0 / nfft)
             start = (lmax - 1) // 2
             return (jax.lax.dynamic_slice_in_dim(yr, start, n, 1),
                     jax.lax.dynamic_slice_in_dim(yi, start, n, 1))

@@ -62,41 +62,11 @@ def czt(x, m: int | None = None, w: complex | None = None,
     from ..plan.plan import get_plan
 
     p = get_plan(L, "auto")
-    # 128-aligned zero-padded chirp tables for the FUSED path (the input
-    # chirp rides the forward kernel's load stage, the output chirp +
-    # m-slice ride the inverse kernel's store stage — same kernels as
-    # the fused Bluestein, ops/pallas_fft.fft_chirp_*_split)
-    n_p = -(-n // 128) * 128
-    m_p = -(-m // 128) * 128
-    A_p = np.zeros((2, n_p), np.float32)
-    A_p[0, :n], A_p[1, :n] = Ar, Ai
-    W_p = np.zeros((2, m_p), np.float32)
-    W_p[0, :m], W_p[1, :m] = Wr, Wi
     Ar, Ai, Wr, Wi, Vr, Vi = map(jnp.asarray, (Ar, Ai, Wr, Wi, Vr, Vi))
 
     def impl(re, im):
         re = jnp.moveaxis(re, axis, -1)
         im = jnp.moveaxis(im, axis, -1)
-        if jax.default_backend() == "tpu" and n_p <= L and m_p <= L:
-            try:  # guarded import: ImportError must fall through to the
-                from . import pallas_fft as _pf  # composed path, not crash
-            except ImportError:
-                _pf = None
-        else:
-            _pf = None
-        if _pf is not None:
-            try:
-                pad = [(0, 0)] * (re.ndim - 1) + [(0, n_p - n)]
-                Yr, Yi = _pf.fft_chirp_forward_split(
-                    jnp.pad(re, pad), jnp.pad(im, pad),
-                    A_p[0], A_p[1], L, -1)
-                gr, gi = _pf.fft_chirp_inverse_split(
-                    Yr, Yi, Vr, Vi, W_p[0], W_p[1], m_p, +1, 1.0 / L)
-                return (jnp.moveaxis(gr[..., :m], -1, axis),
-                        jnp.moveaxis(gi[..., :m], -1, axis))
-            except _pf.Unsupported:
-                pass
-        # composed fallback (CPU / off the fused envelope)
         yr = re * Ar - im * Ai
         yi = re * Ai + im * Ar
         pad = [(0, 0)] * (yr.ndim - 1) + [(0, L - n)]

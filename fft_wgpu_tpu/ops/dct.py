@@ -1,7 +1,7 @@
 """Discrete cosine / sine transforms (scipy.fft-compatible types I-IV).
 
 Built on the C2C pipeline via permutation/extension tricks, so the hot
-loop is always the fused Pallas FFT:
+loop is always the library's FFT:
 
     DCT-I:   Re(FFT(even-symmetric extension, length 2(n-1)))[:n]
     DCT-II:  v[j] = x[2j], v[n-1-j] = x[2j+1];  V = FFT(v)
@@ -112,8 +112,8 @@ def idct(x, type: int = 2, axis: int = -1, norm=None):
 def _dct1(x, axis, norm):
     """DCT-I via the even-symmetric extension of length 2(n-1):
     X[k] = Re(FFT([x0..x_{n-1}, x_{n-2}..x_1]))[k] — bins 0..n-1 are
-    exactly the R2C half spectrum of the real extension, so this rides
-    the single-pass Pallas R2C kernel on TPU."""
+    exactly the R2C half spectrum of the real extension, so this is one
+    R2C."""
     from ..ops.rfft import rfft_last_split
 
     xr, _ = promote_to_split(x)
@@ -282,7 +282,7 @@ def _dst1(xr, axis, norm):
     """DST-I via the odd-symmetric extension of length 2(n+1):
     X[k] = -Im(FFT([0, x0..x_{n-1}, 0, -x_{n-1}..-x0]))[k+1] — bins
     1..n sit inside the R2C half spectrum (m//2+1 == n+2 bins), so this
-    rides the single-pass Pallas R2C kernel on TPU."""
+    is one R2C."""
     from ..ops.rfft import rfft_last_split
 
     n = xr.shape[axis]
@@ -332,7 +332,7 @@ def _apply_nd(fn1d, x, type, s, axes, norm):
     (scipy.fft.dctn semantics: `s` trims/zero-pads each axis first, and
     with axes=None it selects the LAST len(s) axes).  The whole chain —
     resizes and every per-axis pass — traces into ONE jitted program
-    (CLAUDE.md: no eager op chains on remote runtimes)."""
+    (CLAUDE.md: no eager op chains)."""
     nd = jnp.ndim(x)
     if axes is None:
         if s is not None and len(s) > nd:

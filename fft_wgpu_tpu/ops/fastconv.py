@@ -1,19 +1,13 @@
-"""Fused spectral filtering — the cuFFT load-callback analogue.
+"""Spectral filtering: ``y = ifft(fft(x) * H)`` as one jitted program.
 
-``y = ifft(fft(x) * H)`` is the fast-convolution serving loop (FIR
-filtering, channel equalization, deconvolution).  Composed from separate
-ops it costs THREE HBM round trips on TPU (forward kernel, XLA
-elementwise multiply, inverse kernel); the H-multiply here is fused into
-the inverse kernel's load stage (`pallas_fft.fft_filtered_split`), so the
-whole loop is TWO round trips — the same trick cuFFT exposes as "load
-callbacks", expressed as a Pallas tile operation.
+This is the fast-convolution serving loop (FIR filtering, channel
+equalization, deconvolution): a forward transform, the spectrum multiply
+and an inverse transform, all through the plan layer's "auto" route, which
+XLA fuses and schedules as one program.
 
 The reference has no analogue (fft_wgpu is a bare FFT); this is the
-framework's production filtering path.  Falls back to composed ops off
-the fused envelope or off TPU.
-
-Complex data never crosses host<->device (CLAUDE.md): host inputs are
-split at the boundary; `SpectralFilter` stores the response planar.
+framework's production filtering path.  Host inputs are split at the
+boundary; `SpectralFilter` stores the response planar.
 """
 
 from __future__ import annotations
@@ -41,9 +35,8 @@ class SpectralFilter:
         Transform length (defaults to ``len(h)``).
 
     ``apply(x)`` computes ``ifft(fft(x) * H)`` along the last axis of x
-    (circular convolution with the impulse response).  One jitted
-    program; on TPU inside the fused envelope it runs as two Pallas
-    passes with the multiply folded into the second kernel's load stage.
+    (circular convolution with the impulse response) as one jitted
+    program.
     """
 
     def __init__(self, h, n: int | None = None, *, domain: str = "freq"):
@@ -66,26 +59,16 @@ class SpectralFilter:
         self._jit = None
 
     def _build(self):
-        from . import pallas_fft as pf
-        from ..ops.stockham import fft_last_axis as _xla_fft
-        from ..ops.stockham import apply_scale as _xla_scale
+        from ..plan.plan import get_plan
 
-        n = self.n
-        inv_n = 1.0 / n
+        p = get_plan(self.n)
+        inv_n = 1.0 / self.n
 
         def impl(re, im, hr, hi):
-            if (jax.default_backend() == "tpu"
-                    and pf._supported(n)):
-                try:
-                    Xr, Xi = pf.fft_batched_split(re, im, -1, None)
-                    return pf.fft_filtered_split(Xr, Xi, hr, hi, +1, inv_n)
-                except pf.Unsupported:
-                    pass
-            Xr, Xi = _xla_fft(re, im, -1)
+            Xr, Xi = p._execute_split(re, im, -1, None)
             cr = Xr * hr - Xi * hi
             ci = Xr * hi + Xi * hr
-            yr, yi = _xla_fft(cr, ci, +1)
-            return _xla_scale(yr, yi, inv_n)
+            return p._execute_split(cr, ci, +1, inv_n)
 
         return jax.jit(impl)
 

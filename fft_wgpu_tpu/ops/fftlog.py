@@ -19,8 +19,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..core.twiddle import FORWARD, INVERSE
-
 __all__ = ["fht", "ifht", "fhtoffset"]
 
 _LN_2 = math.log(2.0)
@@ -110,27 +108,17 @@ def fhtoffset(dln, mu, initial=0.0, bias=0.0):
 
 
 def _rfft_any(v):
-    """Split R2C over the last axis for any length (trace-time branch)."""
-    from .nd import fftn_split
+    """Split R2C over the last axis (any length)."""
     from .rfft import rfft_last_split
 
-    n = v.shape[-1]
-    if n % 2 == 0 and n >= 2:
-        return rfft_last_split(v, None)
-    re, im = fftn_split(v, jnp.zeros_like(v), (v.ndim - 1,), FORWARD, None)
-    return re[..., : n // 2 + 1], im[..., : n // 2 + 1]
+    return rfft_last_split(v, None)
 
 
 def _irfft_any(r, i, n):
     """Real inverse (backward norm 1/n) over the last axis, any length."""
-    from .nd import fftn_split
-    from .rfft import _hermitian_extend, irfft_last_split
+    from .rfft import irfft_last_split
 
-    if n % 2 == 0 and n >= 2:
-        return irfft_last_split(r, i, n, 1.0 / n)
-    fr, fi = _hermitian_extend(r, i, n)
-    re, _ = fftn_split(fr, fi, (fr.ndim - 1,), INVERSE, 1.0 / n)
-    return re
+    return irfft_last_split(r, i, n, 1.0 / n)
 
 
 def _fht_impl(a, dln, mu, offset, bias, inverse):

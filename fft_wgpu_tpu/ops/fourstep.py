@@ -1,26 +1,18 @@
-"""Large-N 1-D FFT via HBM-level four-step (Bailey) decomposition.
+"""Large-N 1-D FFT via four-step (Bailey) decomposition (executor
+``"fourstep"``).
 
-For transforms beyond the fused kernel's VMEM envelope the reference
-streams butterfly stages through global memory one radix-2 stage at a time
-(log2(n) dispatches — processor.rs:327-330, SURVEY §3.2).  The TPU-native
-equivalent does the same thing in two *large* strides instead of log2(n)
-small ones: n = n1 * n2, batched sub-FFTs over each factor (each hitting
-the fused Pallas kernel), an inter-factor twiddle, and XLA-scheduled corner
-turns:
+The reference streams butterfly stages through global memory one radix-2
+stage at a time (log2(n) dispatches — processor.rs:327-330, SURVEY §3.2).
+Four-step does the same thing in two *large* strides instead of log2(n)
+small ones: n = n1 * n2, batched sub-FFTs over each factor (each through
+the plan layer's "auto" route), an inter-factor twiddle, and an
+XLA-scheduled corner turn:
 
     view x as A[n1, n2]
-    1. B  = FFT_n1 over axis -2        (transpose + batched fused kernel)
+    1. B  = FFT_n1 over axis -2
     2. C  = B * tw[k1, n2]             (f64-generated twiddle plane)
-    3. D  = FFT_n2 over axis -1        (batched fused kernel; output scale
-                                        folded here)
+    3. D  = FFT_n2 over axis -1        (output scale folded here)
     4. X[k1 + n1*k2] = D[k1, k2]       (transpose-flatten)
-
-On TPU the whole transform is TWO HBM round trips: pass 1 is the
-transpose-free axis(-2) kernel, and pass 2 fuses the inter-factor twiddle
-(generated in-register) and the final corner-turn flatten into the rows
-kernel's transposed output BlockSpecs (see pallas_fft.fft_rows_transposed_
-split).  The CPU/fallback path uses an explicit twiddle plane and an XLA
-corner turn (~3-4 round trips).
 """
 
 from __future__ import annotations
@@ -34,16 +26,9 @@ __all__ = ["fft_last_axis", "choose_factors"]
 
 
 def choose_factors(n: int) -> tuple[int, int]:
-    """Split n = n1 * n2, both factors as close to sqrt(n) as possible and
-    (for powers of two) within the fused Pallas kernel envelope."""
+    """Split n = n1 * n2, both factors as close to sqrt(n) as possible."""
     if n & (n - 1) == 0:  # power of two
         e = n.bit_length() - 1
-        if e >= 21:
-            # pin the rows pass to n2=4096, the balanced row kernel's
-            # sweet spot (probe_r17: 2^22x4 (1024,4096) 2.479 ms vs even
-            # split (2048,2048) 2.814 and (512,8192) 2.792; probe_r18:
-            # 2^21x8 (512,4096) 2.481 vs even (1024,2048) 2.825)
-            return n >> 12, 4096
         e1 = e // 2
         return 1 << e1, 1 << (e - e1)
     return _factor.balanced_split(n)
@@ -51,26 +36,9 @@ def choose_factors(n: int) -> tuple[int, int]:
 
 def fft_last_axis(re, im, sign, scale=None):
     """Four-step FFT over the last axis of a split (re, im) pair."""
-    import jax as _jax
-
     from ..plan.plan import get_plan
 
     n = re.shape[-1]
-
-    # Whole-row-in-VMEM fused kernel: ONE HBM round trip and no HBM-level
-    # [.., n] <-> [.., n1, n2] relayouts (each ~60 us of pure copies on the
-    # two-pass path) for 2^15 <= n <= 2^21.
-    if _jax.default_backend() == "tpu":
-        try:
-            from . import bigfft
-        except ImportError:
-            bigfft = None
-        if bigfft is not None:
-            try:
-                return bigfft.fft_big_split(re, im, sign, scale)
-            except bigfft.Unsupported:
-                pass
-
     n1, n2 = choose_factors(n)
     if n1 == 1:  # prime / unsplittable: delegate to the general executor
         from . import stockham
@@ -82,29 +50,11 @@ def fft_last_axis(re, im, sign, scale=None):
     re = re.reshape(*lead, n1, n2)
     im = im.reshape(*lead, n1, n2)
 
-    # 1. FFT over n1 directly on axis -2 — on TPU this is the transpose-free
-    #    sublane-domain kernel (no corner-turn data movement at all).
+    # 1. FFT over n1 along axis -2
     p1 = get_plan(n1, "auto")
     br, bi = p1._execute_split_axis(re, im, sign, None, -2)
 
-    # 2+3+4. On TPU: one fused pass — rows-FFT over n2 with the outer
-    # twiddle generated in-register and the output written via transposed
-    # BlockSpecs, so the whole four-step is TWO HBM round trips.
-    import jax
-
-    if jax.default_backend() == "tpu":
-        try:
-            from . import pallas_fft
-
-            dr, di = pallas_fft.fft_rows_transposed_split(
-                br, bi, sign, scale, outer=(n1, n)
-            )
-            return dr.reshape(*lead, n), di.reshape(*lead, n)
-        except pallas_fft.Unsupported:
-            pass
-
-    # Fallback (CPU / out-of-envelope factors): explicit twiddle + row FFT
-    # + corner-turn flatten.
+    # 2+3+4. twiddle, row FFT over n2, corner-turn flatten
     twr, twi = _tw.twiddle_np(n1, n2, sign)
     twr = jnp.asarray(twr)
     twi = jnp.asarray(twi)

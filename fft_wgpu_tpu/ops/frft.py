@@ -22,7 +22,7 @@ sinc-upsampled grid.  Validated at 1e-15 against the direct continuous-
 kernel quadrature inside the core interval (where the quadrature itself
 is well-sampled) and by exact group properties everywhere else.
 
-TPU design: every table (chirps, convolution-kernel spectra) is
+Design: every table (chirps, convolution-kernel spectra) is
 f64-generated on the host and cast once (CLAUDE.md); the two linear
 convolutions ride the framework's power-of-two plan cache as one jitted
 program per (shape, a); data stays split (re, im).  The reference has no
@@ -219,7 +219,7 @@ def _dfrft_basis(n: int):
 
     Returns (V [n, n] f32 orthonormal columns, h [n] int).  Host f64
     eigendecomposition, O(n^3) once per n (cached); the transform itself
-    is two [n, n] matmuls — MXU-shaped.
+    is two [n, n] matmuls.
     """
     k = np.arange(n)
     S = np.zeros((n, n))
@@ -293,7 +293,7 @@ def dfrft(x, a: float, *, axis: int = -1):
     input (including broadband noise — the admissibility caveat of the
     chirp-based `frft` does not apply), with a=1 exactly the unitary DFT
     and a=2 exactly circular parity.  Cost: one O(n^3) host
-    eigendecomposition per n (cached), then two [n, n] MXU matmuls per
+    eigendecomposition per n (cached), then two [n, n] matmuls per
     call — prefer `frft` (O(n log n)) for long admissible signals.
     dfrft and frft realize different fractional operators away from
     integer orders (different eigenvalue assignments); both reduce to

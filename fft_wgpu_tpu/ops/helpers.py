@@ -91,8 +91,7 @@ def _iscomplex(x) -> bool:
 def fft_convolve(a, b, mode: str = "full", axis: int = -1):
     """1-D linear convolution via the FFT (scipy.signal.fftconvolve-style).
 
-    Real inputs use the R2C pipeline; power-of-two padded length keeps the
-    transform on the fused Pallas path.  Complex host inputs are split at
+    Real inputs use the R2C pipeline.  Complex host inputs are split at
     the boundary inside `fft` (no complex H2D transfer — CLAUDE.md rule).
     """
     from .rfft import irfft, rfft
@@ -192,37 +191,15 @@ def oaconvolve(a, b, mode: str = "full", axes=None, axis: int = None):
         pad = [(0, 0)] * (x.ndim - 1) + [(0, nseg * step - la)]
         xp = jnp.pad(x, pad).reshape(*lead, nseg, step)
         segs = jnp.pad(xp, [(0, 0)] * (x.ndim - 1) + [(0, 0), (0, nfft - step)])
-        if not cplx and jax.default_backend() == "tpu":
-            # PADDED half-spectrum serving forms end-to-end (VERDICT r3
-            # item 5): the ragged nfft//2+1 minor halves the R2C/C2R
-            # kernels' DMA rate; the spectra here are internal, so they
-            # stay lane-aligned from rfft through the multiply to irfft
-            from .rfft import irfft_prod_last_split, rfft_last_split
-
-            bseg = jnp.moveaxis(bv, axis, -1)
-            bpad = jnp.pad(
-                bseg, [(0, 0)] * (bseg.ndim - 1) + [(0, nfft - lb)])
-            Br, Bi = rfft_last_split(bpad, None, pad_out=True)
-            if Br.ndim > 1:
-                Br = Br[..., None, :]
-                Bi = Bi[..., None, :]
-            Sr, Si = rfft_last_split(segs, None, pad_out=True)
-            # fused product-C2R (kernel spectrum broadcast across the
-            # segment rows on the VMEM tile — no HBM multiply pass);
-            # batched leads fall back to the composed product inside
-            Y = irfft_prod_last_split(Sr, Si, Br, Bi, nfft, 1.0 / nfft,
-                                      padded_in=True)
-        else:
-            B = Ff(jnp.moveaxis(bv, axis, -1), n=nfft, axis=-1)
-            if B.ndim > 1:
-                B = B[..., None, :]  # broadcast over the segment axis
-            S = Ff(segs, axis=-1)
-            Y = Fi(S * B, nfft, -1)  # [.., nseg, nfft]
+        B = Ff(jnp.moveaxis(bv, axis, -1), n=nfft, axis=-1)
+        if B.ndim > 1:
+            B = B[..., None, :]  # broadcast over the segment axis
+        S = Ff(segs, axis=-1)
+        Y = Fi(S * B, nfft, -1)  # [.., nseg, nfft]
         # overlap-add into [.., nseg*step + nfft - step] — SCATTER-FREE:
         # pad each frame to K*step and accumulate K contiguous shifted
-        # slabs (the istft trick generalized to step !| nfft).  The old
-        # flat-index .at[idx].add scatter ran ~40x slower on TPU
-        # (2^20 signal x 129-tap kernel: 9.913 -> 0.155 ms total, 64x).
+        # slabs (the istft trick generalized to step !| nfft), in place of
+        # a flat-index .at[idx].add scatter.
         t = nseg * step + (nfft - step)
         K = -(-nfft // step)
         Yp = jnp.pad(Y, [(0, 0)] * (Y.ndim - 1) + [(0, K * step - nfft)])
@@ -265,10 +242,8 @@ def oaconvolve(a, b, mode: str = "full", axes=None, axis: int = None):
 def next_fast_len(target: int, real: bool = False) -> int:
     """Smallest 5-smooth n >= target (scipy.fft.next_fast_len semantics).
 
-    On this framework powers of two are fastest (fused Pallas kernels);
-    5-smooth sizes run the mixed-radix XLA path; anything else pays
-    Bluestein.  With `real=True` the result is additionally forced EVEN,
-    so R2C/C2R callers land on the packed even-n fast paths.
+    With `real=True` the result is additionally forced EVEN (scipy's
+    preference for real transforms).
     """
     if target <= 1:
         return 2 if real else 1
@@ -310,9 +285,9 @@ def prev_fast_len(target: int, real: bool = False) -> int:
     return best
 
 
-# scipy.fft worker-count shims: TPU execution is a single fused XLA
-# program per transform (parallelism comes from the hardware grid, not
-# host threads), so the worker count is advisory-only for API parity.
+# scipy.fft worker-count shims: each transform is one XLA program on the
+# device (parallelism comes from the device, not host threads), so the
+# worker count is advisory-only for API parity.
 _workers = 1
 
 
@@ -341,29 +316,16 @@ class set_workers:
         return False
 
 
-def _conv_fast_len(l: int) -> int:
-    """Transform length for spectral convolution: on TPU prefer the
-    power of two (fused Pallas kernels run several times faster than
-    the XLA mixed-radix path, more than paying for the <=2x padding —
-    BENCHMARKS.md "vs stock XLA"); elsewhere scipy's 5-smooth even
-    choice."""
-    p2 = 1 << max(l - 1, 1).bit_length()
-    if jax.default_backend() == "tpu" and p2 <= (1 << 21):
-        return p2
-    return next_fast_len(l, real=True)
-
-
 def fftconvolve(a, b, mode: str = "full", axes=None):
     """N-D linear convolution via FFTs (scipy.signal.fftconvolve).
 
     `axes=None` convolves over all axes (shapes must match on the rest);
-    real inputs ride the R2C pipeline on the last convolved axis and the
-    C2C pallas kernels elsewhere; each transform length pads to the next
-    fast (5-smooth, even) size.
+    real inputs ride the R2C pipeline on the last convolved axis and C2C
+    elsewhere; each transform length pads to the next fast (5-smooth,
+    even) size.
     """
     from ..core.complex_utils import merge, promote_to_split
     from .nd import fftn, ifftn
-    from .rfft import irfftn, rfftn
 
     a = _as_host_or_device(a)
     b = _as_host_or_device(b)
@@ -389,7 +351,7 @@ def fftconvolve(a, b, mode: str = "full", axes=None):
             "for mode='valid' one input must be at least as large as the "
             "other in every convolved dimension")  # scipy parity
     lfull = [a.shape[ax] + b.shape[ax] - 1 for ax in axes]
-    shape = [_conv_fast_len(l) for l in lfull]
+    shape = [next_fast_len(l, real=True) for l in lfull]
 
     sl = [slice(None)] * nd
     for ax, lf in zip(axes, lfull):
@@ -425,12 +387,8 @@ def fftconvolve(a, b, mode: str = "full", axes=None):
                shape_key(br_), tuple(shape), tuple(axes), str(sl))
         return cached_call(key, impl, ar, ai, br_, bi_)
 
-    # Real path: split padded-spectrum pipeline (probe_r45) — the R2C
-    # writes the lane-aligned serving form [.., pad_bins(L)], the
-    # spectral multiply and any other-axis C2C passes stay padded
-    # (aligned minors), and the C2R consumes it directly; only the
-    # Pallas envelope benefits, but the shape is correct everywhere
-    # (fallbacks pad/slice internally).
+    # Real path: R2C over the last convolved axis, C2C over the rest,
+    # spectrum product, then the inverses in reverse order.
     from ..core.twiddle import FORWARD, INVERSE
     from .nd import fftn_split
     from .rfft import irfft_last_split, rfft_last_split
@@ -449,7 +407,7 @@ def fftconvolve(a, b, mode: str = "full", axes=None):
         moved = last != nd - 1
         if moved:
             v = jnp.moveaxis(v, last, -1)
-        Xr, Xi = rfft_last_split(v, None, pad_out=True)
+        Xr, Xi = rfft_last_split(v, None)
         if moved:
             Xr = jnp.moveaxis(Xr, -1, last)
             Xi = jnp.moveaxis(Xi, -1, last)
@@ -461,32 +419,17 @@ def fftconvolve(a, b, mode: str = "full", axes=None):
         far, fai = _rfwd(_pad_to(av))
         fbr, fbi = _rfwd(_pad_to(bv))
         moved = last != nd - 1
-        if not rest:
-            # 1-D spectrum product: the fused product-C2R kernel folds
-            # the complex multiply into the inverse kernel's load stage
-            # (one HBM spectrum round trip saved — rfft.py wrapper
-            # keeps gradients via a composed backward)
-            from .rfft import irfft_prod_last_split
-
-            if moved:
-                far, fai = (jnp.moveaxis(v, last, -1) for v in (far, fai))
-                fbr, fbi = (jnp.moveaxis(v, last, -1) for v in (fbr, fbi))
-            out = irfft_prod_last_split(far, fai, fbr, fbi, n_last,
-                                        1.0 / n_last, padded_in=True)
-            if moved:
-                out = jnp.moveaxis(out, -1, last)
-            return out[sl]
         pr = far * fbr - fai * fbi
         pi = far * fbi + fai * fbr
-        inv_scale = 1.0
-        for ax in rest:
-            inv_scale /= shape[axes.index(ax)]
-        pr, pi = fftn_split(pr, pi, rest, INVERSE, inv_scale)
+        if rest:
+            inv_scale = 1.0
+            for ax in rest:
+                inv_scale /= shape[axes.index(ax)]
+            pr, pi = fftn_split(pr, pi, rest, INVERSE, inv_scale)
         if moved:
             pr = jnp.moveaxis(pr, last, -1)
             pi = jnp.moveaxis(pi, last, -1)
-        out = irfft_last_split(pr, pi, n_last, 1.0 / n_last,
-                               padded_in=True)
+        out = irfft_last_split(pr, pi, n_last, 1.0 / n_last)
         if moved:
             out = jnp.moveaxis(out, -1, last)
         return out[sl]
@@ -558,22 +501,6 @@ def hilbert(x, n: int = None, axis: int = -1, *, N: int = None):
             v = _resize_axis(v, length, -1)
         re, im = p._execute_split(v, jnp.zeros_like(v), -1, None)
         hh = jnp.asarray(h)
-        if jax.default_backend() == "tpu":
-            # fused filtered inverse (the SpectralFilter/cuFFT-callback
-            # pattern): the h-multiply rides the inverse kernel's load
-            # stage instead of a separate HBM pass — 2 passes total
-            try:
-                from .pallas_fft import Unsupported, fft_filtered_split
-            except ImportError:
-                Unsupported = fft_filtered_split = None
-            if fft_filtered_split is not None:
-                try:
-                    re2, im2 = fft_filtered_split(
-                        re, im, hh, jnp.zeros_like(hh), +1, 1.0 / length)
-                    return merge(jnp.moveaxis(re2, -1, axis),
-                                 jnp.moveaxis(im2, -1, axis))
-                except Unsupported:
-                    pass
         re, im = p._execute_split(re * hh, im * hh, +1, 1.0 / length)
         return merge(jnp.moveaxis(re, -1, axis), jnp.moveaxis(im, -1, axis))
 
@@ -637,14 +564,7 @@ def resample(x, num: int, t=None, axis: int = 0, window=None,
 
         def impl(v):
             v = jnp.moveaxis(v, axis, -1)
-            if n % 2 == 0:
-                Xr, Xi = rfft_last_split(v, None)
-            else:  # odd input length: zero-imag C2C, half spectrum kept
-                from .nd import fftn_split
-
-                re_, im_ = fftn_split(v, jnp.zeros_like(v),
-                                      (v.ndim - 1,), -1, None)
-                Xr, Xi = re_[..., :old_bins], im_[..., :old_bins]
+            Xr, Xi = rfft_last_split(v, None)
             if W is not None:
                 wj = jnp.asarray(Wf)
                 Xr, Xi = Xr * wj, Xi * wj
@@ -668,14 +588,7 @@ def resample(x, num: int, t=None, axis: int = 0, window=None,
                     Xr = jnp.pad(Xr, pad)
                     Xi = jnp.pad(Xi, pad)
             # total scale num/n with the inverse's 1/num folded in => 1/n
-            if num % 2 == 0:
-                y = irfft_last_split(Xr, Xi, num, 1.0 / n)
-            else:  # odd target length: hermitian-extend + C2C inverse
-                from .nd import fftn_split
-                from .rfft import _hermitian_extend
-
-                fr, fi = _hermitian_extend(Xr, Xi, num)
-                y, _ = fftn_split(fr, fi, (fr.ndim - 1,), 1, 1.0 / n)
+            y = irfft_last_split(Xr, Xi, num, 1.0 / n)
             return jnp.moveaxis(y, -1, axis)
 
         out = jax.jit(impl)(jnp.asarray(x0, jnp.float32))
@@ -886,8 +799,8 @@ def detrend(data, axis: int = -1, type: str = "linear", bp=0):
 
 def choose_conv_method(in1, in2, mode: str = "full", measure: bool = False):
     """scipy.signal.choose_conv_method parity shim: on this framework the
-    FFT path IS the implementation (the MXU wants batched transforms, not
-    sliding windows), so the answer is always 'fft'.  With measure=True
+    FFT path IS the implementation (batched transforms, not sliding
+    windows), so the answer is always 'fft'.  With measure=True
     returns ('fft', {}) like scipy's two-tuple form."""
     return ("fft", {}) if measure else "fft"
 
@@ -895,8 +808,7 @@ def choose_conv_method(in1, in2, mode: str = "full", measure: bool = False):
 def convolve(in1, in2, mode: str = "full", method: str = "auto"):
     """N-D convolution (scipy.signal.convolve drop-in).  `method` accepts
     'auto'/'fft'/'direct'; all routes run the FFT implementation
-    (:func:`fftconvolve`) — 'direct' has no advantage on TPU and the FFT
-    path matches it to ~1e-6 in f32."""
+    (:func:`fftconvolve`), which matches the direct sum to ~1e-6 in f32."""
     if method not in ("auto", "fft", "direct"):
         raise ValueError(f"invalid method {method!r}")
     return fftconvolve(in1, in2, mode=mode)

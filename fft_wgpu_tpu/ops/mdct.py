@@ -2,7 +2,7 @@
 
 Beyond scipy.fft (which stops at DCT/DST I-IV); rides the framework's
 DCT-IV through the standard TDAC folding identities, so the whole
-transform is matmul-DFT work on the MXU plus O(n) folds:
+transform is one DCT-IV plus O(n) folds:
 
     MDCT(x)_k  = sum_{t=0}^{2N-1} x_t cos[(pi/N)(t + 1/2 + N/2)(k + 1/2)]
                = DCT-IV([-rev(c) - d, a - rev(b)])_k / 2,

@@ -7,14 +7,14 @@ Framework completeness layer: the reference library is a bare batched FFT
 to ops/helpers.resample (Fourier-domain resampling) with the rational-rate
 method every scipy user expects.
 
-TPU design notes:
+Design notes:
 - Filter *design* (firwin) is tiny host math: generated in float64 numpy
   like every trig/window table (CLAUDE.md invariant), cast once where it
   enters a device program.
 - upfirdn runs as ONE jitted program per (shape, up, down, n_h) geometry:
-  zero-stuff -> pow2-padded R2C convolution (fused Pallas rfft path) ->
-  stride-slice.  scipy implements this as a polyphase C loop; on TPU the
-  FFT form keeps everything on the MXU and avoids per-phase gathers.
+  zero-stuff -> pow2-padded R2C convolution -> stride-slice.  scipy
+  implements this as a polyphase C loop; the FFT form is a few batched
+  device passes and avoids per-phase gathers.
 - Signal-extension modes are realized by explicit jnp.pad pre-extension
   with a mode-aligned offset (the virtual-extension C trick doesn't map
   to static shapes), so outputs match scipy bit-for-bit in geometry.
@@ -799,8 +799,8 @@ def decimate(x, q: int, n: int | None = None, ftype: str = "fir",
     (scipy.signal.decimate, ftype='fir' path).
 
     The default IIR path in scipy (Chebyshev-I sosfiltfilt) is a recursive
-    filter — inherently sequential per sample, the opposite of what the
-    TPU wants; this framework implements the FIR path (scipy's own
+    filter — inherently sequential per sample, the opposite of what an
+    accelerator wants; this framework implements the FIR path (scipy's own
     recommendation for sample-rate conversion) and raises for 'iir'.
     """
     q = int(q)

@@ -1,10 +1,11 @@
 """Multi-dimensional C2C transforms (row-column decomposition).
 
 The reference is strictly 1-D (SURVEY §1); 2-D/3-D are new capabilities
-required by BASELINE.json config 4/5.  N-D = separable application of the
-1-D executor along each axis; the per-axis executor choice (Pallas fused /
-XLA mixed-radix) is delegated to the plan layer, and the whole N-D pipeline
-traces into one jitted program, so XLA owns the inter-axis transposes.
+required by BASELINE.json config 4/5.  On the plan layer's "auto" route the
+transform axes go to XLA's FFT up to three at a time (`jax.lax.fft` with
+several `fft_lengths`); any other executor runs separably, one axis at a
+time.  The whole N-D pipeline traces into one jitted program, so XLA owns
+the inter-axis transposes.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import math
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..core.complex_utils import merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
@@ -41,57 +43,37 @@ def _norm_axes(ndim, s, axes):
     return list(s), axes
 
 
+def _lax_chunks(axes):
+    """Group transform axes, from the last, into runs of up to 3 distinct
+    axes (one `lax.fft` call each)."""
+    chunks, cur = [], []
+    for ax in reversed(axes):
+        if len(cur) == 3 or ax in cur:
+            chunks.append(cur)
+            cur = []
+        cur.insert(0, ax)
+    chunks.append(cur)
+    return chunks
+
+
 def fftn_split(re, im, axes, sign, scale, executor="auto"):
-    """Apply the 1-D executor along each axis; scale applied once at the end."""
-    import jax as _jax
+    """Apply the transform along each axis; scale applied once at the end."""
+    from ..plan.plan import get_plan, lax_fft
 
-    from ..plan.plan import get_plan
-
-    # TPU fast paths for a trailing-2D block:
-    #  * batched planes (>= 8 rows: the grid pipelines DMA with compute)
-    #    in the fused-plane envelope run BOTH axes in one VMEM residency
-    #    (pallas_fft.fft2_fused_split — one HBM round trip instead of
-    #    two); a 3-D transform then costs 2 round trips total.
-    #  * otherwise two transposed-rows passes with zero explicit
-    #    transposes (pallas_fft.fft2_split).
     nd = re.ndim
-    ax_sorted = sorted(a % nd for a in axes)
-    if (
-        executor in ("auto", "pallas")
-        and _jax.default_backend() == "tpu"
-        and len(axes) >= 2
-        and ax_sorted[-2:] == [nd - 2, nd - 1]
-    ):
-        try:
-            from . import pallas_fft
-        except ImportError:
-            pallas_fft = None
-        if pallas_fft is not None:
-            rest = ax_sorted[:-2]
-            lead_rows = math.prod(re.shape[:-2])
-            re2 = im2 = None
-            if lead_rows >= 8 or rest:
-                try:
-                    re2, im2 = pallas_fft.fft2_fused_split(
-                        re, im, sign, scale if not rest else None)
-                except pallas_fft.Unsupported:
-                    re2 = None
-            if re2 is None and not rest:
-                try:
-                    return pallas_fft.fft2_split(re, im, sign, scale)
-                except pallas_fft.Unsupported:
-                    pass
-            if re2 is not None:
-                if not rest:
-                    return re2, im2
-                # fused plane done; fall through to the generic per-axis
-                # loop for the remaining axes (scale applied there)
-                re, im = re2, im2
-                axes = rest
+    axes = [a % nd for a in axes]
+    if executor in ("auto", "lax") and axes:
+        z = lax.complex(re, im)
+        chunks = _lax_chunks(axes)
+        for i, chunk in enumerate(chunks):
+            back = list(range(nd - len(chunk), nd))
+            z = jnp.moveaxis(z, chunk, back)
+            z = lax_fft(z, sign, scale if i == len(chunks) - 1 else None,
+                        ndims=len(chunk))
+            z = jnp.moveaxis(z, back, chunk)
+        return jnp.real(z), jnp.imag(z)
 
     for ax in axes:
-        # the plan layer picks the right executor per axis; axis -2 runs
-        # the transpose-free sublane-domain kernel with no data movement
         p = get_plan(re.shape[ax], executor)
         re, im = p._execute_split_axis(re, im, sign, None, ax)
     if scale is not None and scale != 1.0:

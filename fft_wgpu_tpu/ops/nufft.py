@@ -2,7 +2,7 @@
 
 New capability beyond the reference (which is uniform C2C only — SURVEY
 §2) and beyond scipy.fft: the FINUFFT-style algorithm (Dutt-Rokhlin /
-Greengard-Lee) on the TPU stack.
+Greengard-Lee) on the library's FFT stack.
 
     type 1 ("adjoint"): nonuniform samples  -> uniform Fourier modes
         f_k = sum_j c_j exp(isign * i k x_j),   k = -n//2 .. n-n//2-1

@@ -6,15 +6,14 @@ magnitude/psd scalings, and the full index algebra (p_min/p_max/k_min/
 k_max/borders) for non-centered windows.  Semantics verified against
 scipy.signal.ShortTimeFFT in tests/test_short_time_fft.py.
 
-TPU design differences from scipy's per-slice Python loops:
+Design differences from scipy's per-slice Python loops:
   * `stft` frames the (statically) padded signal with the scatter-free
     gather framing of ops/stft.py and runs ALL slices as one batched
-    transform through the fused R2C/C2C kernels — one jitted program per
+    R2C/C2C transform — one jitted program per
     (shape, slice-range, padding) configuration.
   * `istft` reconstructs with a scatter-free overlap-add: frames are
-    split into ceil(m_num/hop) hop-sized lanes and summed as shifted
-    whole-array adds (no scatter — TPU scatter compiles took minutes,
-    see ops/stft.py).
+    split into ceil(m_num/hop) hop-sized slices and summed as shifted
+    whole-array adds (no flat-index scatter, see ops/stft.py).
   * Windows and dual windows are f64 host arrays cast once (CLAUDE.md).
 
 Real-valued windows only (complex windows are rejected; scipy allows
@@ -379,25 +378,6 @@ class ShortTimeFFT:
 
             from .stft import _frame
 
-            # fused framed-R2C path (round 5, ops/pallas_welch.py):
-            # the boundary blend stays one XLA pass over the signal; the
-            # framing, window, mfft pad, phase roll and R2C all fuse —
-            # no [.., P, m_num] frame matrix in HBM.  Static envelope:
-            # real input, even-mfft onesided modes, hop | m_num.
-            fused = False
-            if not is_c and self.onesided_fft and self.mfft % 2 == 0:
-                import jax as _jax
-
-                if _jax.default_backend() == "tpu":
-                    from . import pallas_welch as _pw
-
-                    fused = _pw.fused_welch_ok(
-                        k_end - k_start, self.m_num, self._hop,
-                        self.mfft, False)
-            p_s = 0
-            if self.phase_shift is not None:
-                p_s = (self.phase_shift + self.m_num_mid) % self.m_num
-
             @jax.jit
             def impl(vr, vi):
                 def blend(v):
@@ -407,30 +387,6 @@ class ShortTimeFFT:
                 def prep(v):
                     return _frame(blend(v), self.m_num,
                                   self._hop)[..., :num, :] * win32
-
-                if fused:
-                    from . import pallas_welch as _pw
-
-                    try:
-                        Xr, Xi = _pw.spec_rfft_split(
-                            blend(vr), win32, self.m_num, self._hop,
-                            self.mfft, False, roll_s=p_s)
-                        if self.fft_mode == "onesided2X":
-                            fac = (np.sqrt(2.0)
-                                   if self._scaling == "psd" else 2.0)
-                            mult = np.full(self.mfft // 2 + 1, fac,
-                                           np.float32)
-                            mult[0] = 1.0
-                            if self.mfft % 2 == 0:
-                                mult[-1] = 1.0
-                            Xr, Xi = Xr * mult, Xi * mult
-                        Xr = jnp.swapaxes(Xr, -1, -2)
-                        Xi = jnp.swapaxes(Xi, -1, -2)
-                        ax_ = axis if axis >= 0 else Xr.ndim - 1 + axis
-                        return (jnp.moveaxis(Xr, -2, ax_),
-                                jnp.moveaxis(Xi, -2, ax_))
-                    except _pw.Unsupported:
-                        pass
 
                 Xr, Xi = self._fft_frames(
                     prep(vr), prep(vi) if vi is not None else None)

@@ -2,9 +2,9 @@
 
 scipy.signal-parity surface built on the framework's batched R2C/C2C
 pipeline: segmentation is the scatter-free framing used by stft
-(ops/stft.py), the hot loop is the fused Pallas rfft on TPU, and each
-entry point traces into ONE jitted program (CLAUDE.md invariant — eager
-chains are pathological on remote runtimes).
+(ops/stft.py), the hot loop is the batched R2C, and each entry point
+traces into ONE jitted program (CLAUDE.md invariant — one dispatch, not
+one per eager op).
 
 The reference library has no signal-analysis layer at all (it is a bare
 batched FFT, SURVEY §2); this module is part of the framework-completeness
@@ -292,60 +292,19 @@ def _median_bias(n: int) -> float:
     return float(1 + np.sum(1.0 / (ii_2 + 1) - 1.0 / ii_2))
 
 
-def _spec_segments_split(xr, xi, win, nperseg, hop, nfft, detrend,
-                         pad_out=False):
+def _spec_segments_split(xr, xi, win, nperseg, hop, nfft, detrend):
     """Frame, detrend, window, transform: returns split [.., num, bins]
-    (full two-sided bins for complex input, half spectrum for real).
-
-    pad_out=True (real input, even nfft) returns the PADDED half-spectrum
-    serving form [.., pad_bins(nfft)] instead of the ragged nfft//2+1
-    minor — the aligned rows keep the TPU R2C kernel at full DMA rate
-    (probe_r45: 0.657 -> 0.441 ms at 4096); reducing consumers (welch/
-    csd) slice the SMALL averaged result instead of the big spectrum."""
+    (full two-sided bins for complex input, half spectrum for real)."""
     from .nd import fftn_split
     from ..core.twiddle import FORWARD
     from .rfft import rfft_last_split
-
-    # fused framed-R2C kernel (round 5, ops/pallas_welch.py): skips the
-    # frame-matrix materialization for real 1-D signals in the envelope
-    if xi is None:
-        import jax as _jax
-
-        if _jax.default_backend() == "tpu":
-            from . import pallas_welch as _pw
-
-            if _pw.fused_welch_ok(xr.shape[-1], nperseg, hop, nfft,
-                                  detrend):
-                try:
-                    return _pw.spec_rfft_split(xr, win, nperseg, hop,
-                                               nfft, detrend,
-                                               pad_out=pad_out)
-                except _pw.Unsupported:
-                    pass
-    else:
-        import jax as _jax
-
-        if _jax.default_backend() == "tpu":
-            from . import pallas_welch as _pw
-
-            if _pw.fused_welch_ok(xr.shape[-1], nperseg, hop, nfft,
-                                  detrend, c2c=True):
-                try:  # complex input: fused two-sided framed C2C
-                    return _pw.spec_c2c_split(xr, xi, win, nperseg, hop,
-                                              nfft, detrend)
-                except _pw.Unsupported:
-                    pass
 
     frames_r = _detrend_seg(_frame(xr, nperseg, hop), detrend) * win
     if xi is None:
         if nfft > nperseg:
             pad = [(0, 0)] * (frames_r.ndim - 1) + [(0, nfft - nperseg)]
             frames_r = jnp.pad(frames_r, pad)
-        if nfft % 2 == 0:
-            return rfft_last_split(frames_r, None, pad_out=pad_out)
-        re, im = fftn_split(frames_r, jnp.zeros_like(frames_r),
-                            (frames_r.ndim - 1,), FORWARD, None)
-        return re[..., : nfft // 2 + 1], im[..., : nfft // 2 + 1]
+        return rfft_last_split(frames_r, None)
     frames_i = _detrend_seg(_frame(xi, nperseg, hop), detrend) * win
     if nfft > nperseg:
         pad = [(0, 0)] * (frames_r.ndim - 1) + [(0, nfft - nperseg)]
@@ -439,74 +398,14 @@ def _csd_impl(x, y, fs, window, nperseg, noverlap, nfft, detrend,
         if not onesided and yr_ is not None and yi_ is None:
             yi_ = jnp.zeros_like(yr_)
 
-        # FUSED welch core (VERDICT r4 item 7): for the real 1-D
-        # auto-spectrum mean, framing + detrend + window + R2C + |.|^2 +
-        # segment-sum run in ONE Pallas pass (ops/pallas_welch.py) —
-        # ~2 signal reads of HBM traffic instead of the ~9 passes of the
-        # composed pipeline.  Everything after is on the tiny bins vector.
-        if (onesided and xi_ is None
-                and (same or (yi_ is None and yr_.shape == xr_.shape))
-                and (average == "mean" or (average == "median" and same))
-                and jax.default_backend() == "tpu"):
-            from . import pallas_welch as _pw
-
-            if _pw.fused_welch_ok(xr_.shape[-1], nperseg, hop, nfft,
-                                  detrend):
-                try:
-                    if not same:
-                        Pr, Pi, num_ = _pw.csd_accum_split(
-                            xr_, yr_, win, nperseg, hop, nfft, detrend)
-                        den = float(num_)
-                    elif average == "mean":
-                        psum, num_ = _pw.welch_accum_split(
-                            xr_, win, nperseg, hop, nfft, detrend)
-                        Pr, Pi = psum, jnp.zeros_like(psum)
-                        den = float(num_)
-                    else:  # median: fused per-segment power, XLA median
-                        P = _pw.spec_psd_split(xr_, win, nperseg, hop,
-                                               nfft, detrend)
-                        Pr = jnp.median(P, axis=-2)
-                        Pi = jnp.zeros_like(Pr)
-                        den = _median_bias(P.shape[-2])
-                    mult = np.full(nfft // 2 + 1, 2.0, np.float32)
-                    mult[0] = 1.0
-                    if nfft % 2 == 0:
-                        mult[-1] = 1.0
-                    mult = mult * (norm / den)
-                    return (jnp.moveaxis(Pr * mult, -1, axis),
-                            jnp.moveaxis(Pi * mult, -1, axis))
-                except _pw.Unsupported:
-                    pass
-        # two-sided same-signal (COMPLEX input, or real with
-        # return_onesided=False): the fused full-spectrum C2C variant
-        if (not onesided and same and average == "mean"
-                and jax.default_backend() == "tpu"):
-            from . import pallas_welch as _pw
-
-            if _pw.fused_welch_ok(xr_.shape[-1], nperseg, hop, nfft,
-                                  detrend, c2c=True):
-                try:
-                    psum, num_ = _pw.welch_accum_c2c_split(
-                        xr_, xi_, win, nperseg, hop, nfft, detrend)
-                    Pr = psum * (norm / num_)
-                    return (jnp.moveaxis(Pr, -1, axis),
-                            jnp.moveaxis(jnp.zeros_like(Pr), -1, axis))
-                except _pw.Unsupported:
-                    pass
-
-        # padded half-spectrum serving form end-to-end (VERDICT r3 item
-        # 5): the ragged nfft//2+1 minor halves the R2C kernel's DMA
-        # rate; the averaged result is tiny, so the slice moves there
-        pad_out = (onesided and xi_ is None and nfft % 2 == 0
-                   and jax.default_backend() == "tpu")
         Xr, Xi = _spec_segments_split(xr_, xi_, win, nperseg, hop, nfft,
-                                      detrend, pad_out=pad_out)
+                                      detrend)
         if same:
             Pr = Xr * Xr + Xi * Xi          # X * conj(X)
             Pi = jnp.zeros_like(Pr)
         else:
             Yr, Yi = _spec_segments_split(yr_, yi_, win, nperseg, hop, nfft,
-                                          detrend, pad_out=pad_out)
+                                          detrend)
             # scipy: Pxy = conj(X) * Y
             Pr = Xr * Yr + Xi * Yi
             Pi = Xr * Yi - Xi * Yr
@@ -520,9 +419,6 @@ def _csd_impl(x, y, fs, window, nperseg, noverlap, nfft, detrend,
             Pi = jnp.median(Pi, axis=-2) / bias
         else:
             raise ValueError(f"invalid average {average!r}")
-        if pad_out:  # back to the numpy-parity bin count (tiny array)
-            Pr = Pr[..., : nfft // 2 + 1]
-            Pi = Pi[..., : nfft // 2 + 1]
         Pr = Pr * norm
         Pi = Pi * norm
         if onesided:
@@ -594,38 +490,6 @@ def coherence(x, y, fs: float = 1.0, window="hann",
               nperseg: int | None = None, noverlap: int | None = None,
               nfft: int | None = None, detrend="constant", axis: int = -1):
     """Magnitude-squared coherence Cxy = |Pxy|^2 / (Pxx Pyy) (scipy parity)."""
-    # fused single-pass path (round 5): conj(X)Y, |X|^2 and |Y|^2
-    # accumulate in ONE kernel sweep instead of three estimator passes;
-    # all normalization constants cancel in the ratio.  The whole
-    # pipeline traces into ONE jitted program (CLAUDE.md invariant —
-    # eager chains are pathological on remote runtimes).
-    if jax.default_backend() == "tpu" and not _is_complex(x) \
-            and not _is_complex(y):
-        (xr, _xi, yr, _yi, np_, no_, nf_, win,
-         _c) = _resolve_args(x, y, nperseg, noverlap, nfft, window, axis)
-        hop = np_ - no_
-        from . import pallas_welch as _pw
-
-        if (yr is not None and xr.shape == yr.shape
-                and _pw.fused_welch_ok(xr.shape[axis], np_, hop, nf_,
-                                       detrend)):
-            try:
-                def _coh(vr, wr):
-                    vr = jnp.moveaxis(vr, axis, -1)
-                    wr = jnp.moveaxis(wr, axis, -1)
-                    Pr, Pi, Sxx, Syy, _num = _pw.coherence_accum_split(
-                        vr, wr, win, np_, hop, nf_, detrend)
-                    C = (Pr * Pr + Pi * Pi) / (Sxx * Syy)
-                    return jnp.moveaxis(C, -1, axis)
-
-                wkey = _window_key(window)
-                key = None if wkey is None else (
-                    "coh", jax.default_backend(), _shape_key(xr),
-                    _shape_key(yr), wkey, np_, hop, nf_, detrend, axis)
-                C = _cached_call(key, _coh, xr, yr)
-                return rfftfreq(nf_, 1.0 / fs), C
-            except _pw.Unsupported:
-                pass
     f, Pxyr, Pxyi, _ = _csd_impl(x, y, fs, window, nperseg, noverlap, nfft,
                                  detrend, True, "density", axis, "mean")
     _, Pxx, _, _ = _csd_impl(x, None, fs, window, nperseg, noverlap, nfft,
@@ -651,7 +515,7 @@ def multitaper(x, fs: float = 1.0, NW: float = 4.0, K: int | None = None,
     program — no data-dependent Python control flow, CLAUDE.md).
 
     One jitted program per (shape, K, nfft): the K tapered transforms run
-    as ONE batched R2C/C2C call on the fused Pallas kernels.
+    as ONE batched R2C/C2C call.
     Returns (f, Pxx) with density scaling (V**2/Hz); Pxx is real float32.
     """
     xr, xi = promote_to_split(x)
@@ -770,52 +634,6 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
         v_i = jnp.moveaxis(xi_, axis, -1) if xi_ is not None else None
         if not onesided and v_i is None:
             v_i = jnp.zeros_like(v_r)  # two-sided needs the full C2C path
-        if (mode in ("psd", "magnitude") and onesided and v_i is None
-                and jax.default_backend() == "tpu"):
-            # fused framing+window+R2C+|.|^2 kernel (ops/pallas_welch.py):
-            # skips the frame matrix materialization and the separate
-            # power pass of the composed pipeline
-            from . import pallas_welch as _pw
-
-            if _pw.fused_welch_ok(v_r.shape[-1], nperseg, hop, nfft,
-                                  detrend):
-                try:
-                    P = _pw.spec_psd_split(v_r, win, nperseg, hop, nfft,
-                                           detrend)
-                    if mode == "magnitude":
-                        S = jnp.sqrt(P) * float(np.sqrt(norm))
-                        return (jnp.swapaxes(S, -1, -2),)
-                    S = P * norm
-                    mult = np.full(S.shape[-1], 2.0, np.float32)
-                    mult[0] = 1.0
-                    if nfft % 2 == 0:
-                        mult[-1] = 1.0
-                    return (jnp.swapaxes(S * mult, -1, -2),)
-                except _pw.Unsupported:
-                    pass
-        if (mode in ("psd", "magnitude", "complex") and not onesided
-                and jax.default_backend() == "tpu"):
-            # two-sided (complex-input) spectrogram: fused full-spectrum
-            # framed C2C; psd/magnitude pay one tiny elementwise pass
-            from . import pallas_welch as _pw
-
-            if _pw.fused_welch_ok(v_r.shape[-1], nperseg, hop, nfft,
-                                  detrend, c2c=True):
-                try:
-                    Xr, Xi = _pw.spec_c2c_split(v_r, v_i, win, nperseg,
-                                                hop, nfft, detrend)
-                    if mode == "psd":
-                        return (jnp.swapaxes(
-                            (Xr * Xr + Xi * Xi) * norm, -1, -2),)
-                    if mode == "magnitude":
-                        return (jnp.swapaxes(
-                            jnp.sqrt(Xr * Xr + Xi * Xi), -1, -2)
-                            * float(np.sqrt(norm)),)
-                    s = float(np.sqrt(norm))
-                    return (jnp.swapaxes(Xr, -1, -2) * s,
-                            jnp.swapaxes(Xi, -1, -2) * s)
-                except _pw.Unsupported:
-                    pass
         Xr, Xi = _spec_segments_split(v_r, v_i, win, nperseg, hop, nfft,
                                       detrend)
         if mode == "psd":
@@ -860,17 +678,19 @@ def spectrogram(x, fs: float = 1.0, window=("tukey", 0.25),
 def _lombscargle_core(x, y, w, freqs, floating_mean: bool = False):
     """Zechmeister-Kuerster generalized Lomb-Scargle inner math (scipy
     1.17 lombscargle): returns (a, b, tau, YY) per frequency.  All
-    contractions are [N] x [N, K] matvecs (MXU-shaped)."""
+    contractions are [N] x [N, K] matvecs, at HIGHEST precision (a GPU's
+    DEFAULT would run them as TF32, ~1e-3 relative)."""
+    mv = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
     wy = w * y
     ft = freqs[None, :] * x[:, None]          # [N, K]
     cos1, sin1 = jnp.cos(ft), jnp.sin(ft)
-    Y = jnp.dot(w, y)
-    CC = w @ (cos1 * cos1)
+    Y = mv(w, y)
+    CC = mv(w, cos1 * cos1)
     SS = 1.0 - CC
-    CS = w @ (cos1 * sin1)
+    CS = mv(w, cos1 * sin1)
     if floating_mean:
-        C = w @ cos1
-        S = w @ sin1
+        C = mv(w, cos1)
+        S = mv(w, sin1)
         CC = CC - C * C
         SS = SS - S * S
         CS = CS - C * S
@@ -879,13 +699,13 @@ def _lombscargle_core(x, y, w, freqs, floating_mean: bool = False):
     # cos(ft - tau), sin(ft - tau) without recomputing trig of ft
     cosr = cos1 * ctau + sin1 * stau
     sinr = sin1 * ctau - cos1 * stau
-    YC = wy @ cosr
-    YS = wy @ sinr
-    CC = w @ (cosr * cosr)
+    YC = mv(wy, cosr)
+    YS = mv(wy, sinr)
+    CC = mv(w, cosr * cosr)
     SS = 1.0 - CC
     if floating_mean:
-        C = w @ cosr
-        S = w @ sinr
+        C = mv(w, cosr)
+        S = mv(w, sinr)
         YC = YC - Y * C
         YS = YS - Y * S
         CC = CC - C * C
@@ -895,7 +715,7 @@ def _lombscargle_core(x, y, w, freqs, floating_mean: bool = False):
     SS = jnp.maximum(SS, eps)
     a = YC / CC
     b = YS / SS
-    YY = jnp.dot(wy, y)
+    YY = mv(wy, y)
     if floating_mean:
         YY = YY - Y * Y
     return a, b, tau, YC, YS, YY

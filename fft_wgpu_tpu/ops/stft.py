@@ -1,8 +1,8 @@
 """STFT / ISTFT and window functions (scipy.signal-style semantics).
 
 Framework completeness layer: short-time transforms built on the batched
-R2C pipeline — framing is a reshape/gather, the hot loop is the fused
-Pallas rfft, and everything composes under one jit.
+R2C pipeline — framing is a reshape/gather, the hot loop is the batched
+R2C, and everything composes under one jit.
 """
 
 from __future__ import annotations
@@ -57,10 +57,8 @@ def _frame(x, frame_len: int, hop: int):
     """[..., t] -> [..., num_frames, frame_len] by strided windowing.
 
     GATHER-FREE for ANY hop: framing is K = ceil(frame_len/hop) shifted
-    slices of a hop-chunked view, lane-concatenated and sliced to
-    frame_len (flat-index gathers — the old hop !| frame_len fallback —
-    are the same ~50x TPU hazard class as the OLA scatters,
-    PERFORMANCE.md round-5i; and these shapes compiled for minutes)."""
+    slices of a hop-chunked view, concatenated and sliced to frame_len,
+    in place of a flat-index gather."""
     t = x.shape[-1]
     if t < frame_len:
         raise ValueError(
@@ -84,8 +82,7 @@ def _frame(x, frame_len: int, hop: int):
 def _ola_slabs(frames, hop: int, t: int):
     """Scatter-free overlap-add of [..., num, flen] frames at stride
     `hop` into [..., t]: pad frames to K*hop and accumulate K contiguous
-    shifted slabs.  Flat-index .at[idx].add scatters run ~40-60x slower
-    on TPU (oaconvolve 2^20 x 129: 9.913 -> 0.155 ms with this form)."""
+    shifted slabs, in place of a flat-index .at[idx].add scatter."""
     num, flen = frames.shape[-2], frames.shape[-1]
     lead = frames.shape[:-2]
     K = -(-flen // hop)
@@ -130,20 +127,6 @@ def stft(x, n_fft: int = 512, hop_length: int | None = None, window=None,
         x = jnp.pad(x, pad, mode="reflect")
 
     def impl(v):
-        # fused framed-R2C kernel (round 5; leading dims flattened to
-        # a batch grid dim — ops/pallas_welch.py): frames built in
-        # VMEM, no [.., num, n_fft] frame matrix in HBM (2.79x at 2^22
-        # x 4096, PERFORMANCE.md round-5e)
-        if jax.default_backend() == "tpu":
-            from . import pallas_welch as _pw
-
-            if _pw.fused_welch_ok(v.shape[-1], n_fft, hop, n_fft, False):
-                try:
-                    Xr, Xi = _pw.spec_rfft_split(v, window, n_fft, hop,
-                                                 n_fft, False)
-                    return jnp.swapaxes(jax.lax.complex(Xr, Xi), -1, -2)
-                except _pw.Unsupported:
-                    pass
         frames = _frame(v, n_fft, hop) * window  # [..., num, n_fft]
         spec = rfft(frames, axis=-1)             # [..., num, n_fft//2+1]
         return jnp.swapaxes(spec, -1, -2)
@@ -181,8 +164,8 @@ def istft(Z, n_fft: int = 512, hop_length: int | None = None, window=None,
 
         if n_fft % hop == 0:
             # scatter-free overlap-add: chunk frames into K hop-slices and
-            # accumulate K contiguous shifted slabs (TPU scatters of the
-            # flat-index form compile for minutes)
+            # accumulate K contiguous shifted slabs (no flat-index
+            # scatter)
             K = n_fft // hop
             ch = frames.reshape(*lead, num, K, hop)
             out = jnp.zeros((*lead, num + K - 1, hop), jnp.float32)

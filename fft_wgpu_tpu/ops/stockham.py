@@ -1,10 +1,10 @@
-"""Mixed-radix FFT core in pure jnp (the general XLA path).
+"""Mixed-radix FFT by DFT matmuls in pure jnp (executor ``"xla"``).
 
-TPU-first redesign of the reference's WGSL butterfly pipeline
+A redesign of the reference's WGSL butterfly pipeline
 (fft_wgpu src/kernel/fft4.wgsl, ifft.wgsl): instead of radix-2
 scalar-thread butterflies, the transform is expressed as a recursive
 four-step (Cooley-Tukey) decomposition whose base cases are *direct DFT
-matmuls* that run on the 128x128 MXU.  Like the reference's Stockham
+matmuls*.  Like the reference's Stockham
 autosort formulation (fft4.wgsl:61-70) the output is in natural order with
 no bit-reversal pass — the reordering is absorbed into the final
 transpose-flatten of each decomposition level.
@@ -31,9 +31,10 @@ from ..core import twiddle as _tw
 
 __all__ = ["fft_last_axis", "apply_scale"]
 
-# Precision for the DFT matmuls.  HIGHEST = full f32 on the MXU
-# (bf16x6 passes); needed to hit the 1e-5 relative-L2 oracle bar
-# (reference tolerance: examples/basic_inverse.rs:249-253).
+# Precision for the DFT matmuls.  HIGHEST = full float32 products (on a GPU
+# DEFAULT may run as TF32, ~1e-3 relative); HIGHEST is needed to hit the
+# 1e-5 relative-L2 oracle bar (reference tolerance:
+# examples/basic_inverse.rs:249-253).  utils/precision.py switches it.
 _DOT_PREC = jax.lax.Precision.HIGHEST
 
 
@@ -65,16 +66,6 @@ def fft_last_axis(re, im, sign):
         return re, im
     if n <= _factor.MAX_DIRECT:
         return _dft_direct(re, im, sign)
-    if (n & (n - 1)) and jax.default_backend() == "tpu":
-        # composite non-pow2 on TPU: ONE fused VMEM-resident pass
-        # (generic two-factor kernel) instead of the multi-pass XLA
-        # recursion below / two fused m-sized Bluestein passes
-        from . import pallas_fft
-
-        try:
-            return pallas_fft.fft_rows_general_split(re, im, sign)
-        except pallas_fft.Unsupported:
-            pass
     if not _factor.is_smooth(n):
         from . import bluestein
 

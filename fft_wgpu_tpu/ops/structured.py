@@ -5,7 +5,7 @@ are O(n log n) spectral multiplies; Toeplitz matvecs ride a circulant
 embedding of twice the length; symmetric positive-definite Toeplitz
 solves use conjugate gradients with the Strang circulant preconditioner
 (every iteration is FFT matvecs — the classic superfast-Toeplitz recipe,
-all of it MXU-batched here).  Circulant embedding also yields exact
+all of it batched here).  Circulant embedding also yields exact
 stationary Gaussian-random-field sampling (Dietrich & Newsam 1997).
 
     circulant_matvec(c, x)     y = C(c) @ x            O(n log n)

@@ -2,8 +2,10 @@
 
 The reference is single-device (one adapter/queue ever created —
 fft_wgpu src/lib.rs:38-59); multi-chip execution is a new first-class
-subsystem here (SURVEY §2 parallelism checklist).  Meshes are the TPU
+subsystem here (SURVEY §2 parallelism checklist).  Meshes are the
 `prepare_gpu()` analogue: build once, pass to the distributed transforms.
+The cards of one host are joined all to all by NVLink, so a mesh's shape
+follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ def make_mesh(shape=None, axis_names=("x",), devices=None) -> Mesh:
 
 def make_pencil_mesh(devices=None, axis_names=("px", "py")) -> Mesh:
     """2-D mesh as square as possible — the pencil-decomposition layout
-    (BASELINE.json config 5: all-to-all over ICI rides both mesh axes)."""
+    (BASELINE.json config 5: the all-to-all corner turns ride both mesh
+    axes)."""
     devices = list(devices if devices is not None else jax.devices())
     nd = len(devices)
     p1 = 1
@@ -44,28 +47,27 @@ def make_pencil_mesh(devices=None, axis_names=("px", "py")) -> Mesh:
     return make_mesh((p1, nd // p1), axis_names, devices)
 
 
-def make_hybrid_mesh(axis_names=("dcn", "ici"), devices=None) -> Mesh:
-    """Multi-slice (ICI x DCN) 2-D mesh: the MINOR axis stays within one
-    TPU slice (collectives along it ride ICI), the MAJOR axis crosses
-    slice boundaries (DCN).
+def make_hybrid_mesh(axis_names=("hosts", "nvlink"), devices=None) -> Mesh:
+    """Multi-host 2-D mesh: the MINOR axis holds the cards of one host
+    (an NVLink island, where collectives along it stay on NVLink), the
+    MAJOR axis crosses hosts (the network).
 
-    Slice membership comes from each device's `slice_index` attribute
-    (present on real multi-slice TPU deployments); devices without it —
-    single-slice TPUs, the virtual CPU mesh — fall back to ONE slice,
-    i.e. a [1, n] mesh whose minor axis is all-ICI.  For the pencil
-    transforms, lay shardings out so the X<->Y corner turn (the
-    per-step all-to-all) maps to the 'ici' axis and only batch/outer
-    parallelism to 'dcn' — DCN all-to-all bandwidth is an order of
-    magnitude below ICI (utils/roofline.pencil_fft3d_model).
+    Host membership comes from each device's `process_index` (one JAX
+    process per host); a single-process deployment — one host's cards,
+    the virtual CPU mesh — is ONE host, i.e. a [1, n] mesh whose minor
+    axis is all NVLink.  For the pencil transforms, lay shardings out so
+    the X<->Y corner turn (the per-step all-to-all) maps to the 'nvlink'
+    axis and only batch/outer parallelism to 'hosts' — the network
+    between hosts is an order of magnitude slower than NVLink.
     """
     devices = list(devices if devices is not None else jax.devices())
-    slices: dict = {}
+    hosts: dict = {}
     for d in devices:
-        slices.setdefault(getattr(d, "slice_index", 0), []).append(d)
-    counts = {len(v) for v in slices.values()}
+        hosts.setdefault(d.process_index, []).append(d)
+    counts = {len(v) for v in hosts.values()}
     if len(counts) != 1:
         raise ValueError(
-            f"uneven slices: {sorted((k, len(v)) for k, v in slices.items())}")
+            f"uneven hosts: {sorted((k, len(v)) for k, v in hosts.items())}")
     per = counts.pop()
-    ordered = [d for k in sorted(slices) for d in slices[k]]
-    return make_mesh((len(slices), per), axis_names, ordered)
+    ordered = [d for k in sorted(hosts) for d in hosts[k]]
+    return make_mesh((len(hosts), per), axis_names, ordered)

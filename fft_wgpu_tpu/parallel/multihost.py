@@ -18,8 +18,9 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
                process_id: int | None = None):
     """Join the JAX distributed cluster (idempotent, env-driven defaults).
 
-    On Cloud TPU pods, `jax.distributed.initialize()` with no arguments
-    autodetects everything; arguments are for manual clusters.
+    Where no cluster manager tells JAX of the cluster, pass
+    `coordinator_address` (e.g. "localhost:<port>"), `num_processes` and
+    `process_id` explicitly.
     """
     try:
         jax.distributed.initialize(
@@ -37,6 +38,6 @@ def global_pencil_mesh(axis_names=("px", "py")):
     """Pencil mesh over every device in the cluster (all hosts).
 
     Mesh axes are laid out so the all-to-all corner turns of
-    parallel.pencil ride ICI within a slice wherever possible.
+    parallel.pencil stay within a host's NVLink island wherever possible.
     """
     return make_pencil_mesh(jax.devices(), axis_names=axis_names)

@@ -2,8 +2,8 @@
 
 New subsystem vs the single-device reference (SURVEY §2/§5): multi-chip
 transforms are expressed with `shard_map` over a `jax.sharding.Mesh`, with
-`jax.lax.all_to_all` corner turns that XLA lowers onto ICI — the TPU-native
-replacement for the NCCL/MPI transpose steps of GPU FFT stacks.
+`jax.lax.all_to_all` corner turns that XLA hands to NCCL over NVLink — the
+transpose steps of distributed GPU FFT stacks.
 
 Decompositions
 --------------
@@ -17,8 +17,7 @@ Decompositions
   inter-factor twiddle is computed per-shard from `axis_index`.
 
 All compute runs on split re/im pairs inside shard_map; each local
-sub-transform goes through the plan layer, so on TPU the fused Pallas
-kernels do the flops.
+sub-transform goes through the plan layer's "auto" route (XLA's FFT).
 """
 
 from __future__ import annotations
@@ -73,9 +72,9 @@ def _a2a(pair, axis_name, split_axis, concat_axis, comm_dtype=None):
     re, im = pair
     if comm_dtype is not None:
         # mixed-precision corner turn: halve the wire bytes of the
-        # dominant (ICI-bound, ~8x on v5e — BENCHMARKS.md) cost.  The
-        # cast costs one VPU pass each way; rel error ~bf16 eps (4e-3)
-        # per turn on the intermediate spectrum — opt-in only.
+        # collective.  The cast costs one elementwise pass each way; rel
+        # error ~bf16 eps (4e-3) per turn on the intermediate spectrum —
+        # opt-in only.
         re = re.astype(comm_dtype)
         im = im.astype(comm_dtype)
     re = jax.lax.all_to_all(re, axis_name, split_axis, concat_axis, tiled=True)
@@ -92,9 +91,9 @@ def _fft_then_a2a_chunked(re, im, fft_axis, sign, scale, axis_name,
     """FFT along `fft_axis` then all-to-all, pipelined in `chunks` slices
     along `chunk_axis` (an axis participating in neither the FFT nor the
     a2a).  Chunk i's a2a depends only on chunk i's FFT, so XLA's async
-    collectives (start/done pairs on TPU) overlap chunk i's ICI transfer
-    with chunk i+1's compute — the SURVEY §7 hard part ("pencil 3-D FFT
-    must overlap ICI all-to-all with per-pencil compute").  chunks=1 is
+    collectives (start/done pairs) overlap chunk i's transfer with chunk
+    i+1's compute — the SURVEY §7 hard part ("pencil 3-D FFT must overlap
+    the all-to-all with per-pencil compute").  chunks=1 is
     the unpipelined baseline."""
     if chunks <= 1 or re.shape[chunk_axis] < chunks:
         re, im = _fft_axis_local(re, im, fft_axis, sign, scale)
@@ -137,7 +136,7 @@ def _fft3d_impl(x, mesh, sign, scale, transposed_output, overlap_chunks=None,
 
     def local(re, im):
         # in: [.., X/px, Y/py, Z].  Each FFT->a2a pair is chunk-pipelined
-        # along a spectator axis so the ICI transfer of one chunk overlaps
+        # along a spectator axis so the transfer of one chunk overlaps
         # the next chunk's pencil FFTs (see _fft_then_a2a_chunked).
         o = re.ndim - 3
         re, im = _fft_then_a2a_chunked(                          # Z-FFT
@@ -190,13 +189,12 @@ def fft3d(x, mesh: Mesh | None = None, norm=None, *, transposed_output=False,
     decomposed over a 2-D mesh (leading axes are replicated batch dims).
 
     `overlap_chunks` pipelines each FFT->all-to-all pair in that many
-    chunks so ICI transfers overlap pencil compute (default: 4 on real
+    chunks so the transfers overlap pencil compute (default: 4 on real
     meshes, 1 single-device).
 
     `comm_dtype=jnp.bfloat16` sends the all-to-all corner turns over the
-    wire in bf16 (compute stays f32): the transform is ~8x ICI-bound on
-    v5e (BENCHMARKS.md scaling model), so halving the turn bytes is the
-    single biggest distributed-throughput lever.  Opt-in: each bf16 turn
+    wire in bf16 (compute stays f32), halving the bytes of the corner
+    turns.  Opt-in: each bf16 turn
     rounds the intermediate spectrum to ~3 decimal digits (measured
     ~1e-3 rel L2 end to end); default None keeps full f32 wires.
 
@@ -429,15 +427,9 @@ def rfft3d(x, mesh: Mesh | None = None, norm=None, *,
 
     def local(xr):
         from ..ops.rfft import rfft_last_split
-        from ..ops.nd import fftn_split
 
         o = xr.ndim - 3
-        if Z % 2 == 0 and Z >= 2:
-            re, im = rfft_last_split(xr, None)            # [.., Xl, Yl, Z/2+1]
-        else:
-            re, im = fftn_split(xr, jnp.zeros_like(xr), (xr.ndim - 1,),
-                                FORWARD, None)
-            re, im = re[..., : Z // 2 + 1], im[..., : Z // 2 + 1]
+        re, im = rfft_last_split(xr, None)                # [.., Xl, Yl, Z/2+1]
         # pad the half-spectrum axis to a multiple of the mesh for a2a
         nb = re.shape[-1]
         pad = (-nb) % mesh.devices.shape[1]
@@ -506,16 +498,8 @@ def irfft3d(X, n_last: int, mesh: Mesh | None = None, norm=None, *,
         """Local Z-axis C2R of the [.., Xl, Yl, nb] half-spectrum."""
         from ..ops.rfft import irfft_last_split
 
-        re2 = re2[..., :nb]
-        im2 = im2[..., :nb]
-        if n_last % 2 == 0 and n_last >= 2:
-            return irfft_last_split(re2, im2, n_last, 1.0 / n_last)
-        from ..ops.rfft import _hermitian_extend
-        from ..ops.nd import fftn_split
-
-        fr, fi = _hermitian_extend(re2, im2, n_last)
-        out, _ = fftn_split(fr, fi, (fr.ndim - 1,), INVERSE, 1.0 / n_last)
-        return out
+        return irfft_last_split(re2[..., :nb], im2[..., :nb], n_last,
+                                1.0 / n_last)
 
     def local(re, im):
         o = re.ndim - 3

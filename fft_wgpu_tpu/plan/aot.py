@@ -1,8 +1,8 @@
 """Ahead-of-time plan artifacts for serving (jax.export).
 
 The reference compiles its pipelines at plan construction and replays
-them forever (fft_wgpu src/processor.rs:19-108); the TPU-native analogue
-of *shipping* that work is a serialized StableHLO artifact: every
+them forever (fft_wgpu src/processor.rs:19-108); the analogue of
+*shipping* that work is a serialized StableHLO artifact: every
 executor of a plan, traced and lowered for fixed serving shapes, written
 to one portable file.  A serving process loads the artifact and replays
 the transforms with ZERO Python tracing — combined with the persistent
@@ -53,7 +53,7 @@ def export_plan(p, path=None, *, batch_shape=(), axis: int = -1,
 
     `path=None` returns the artifact as bytes; otherwise writes the file
     and returns `path`.  `platforms` optionally cross-lowers for other
-    backends (e.g. ("tpu",) from a CPU host), default: current backend.
+    backends (e.g. ("cuda",) from a CPU host), default: current backend.
     """
     from jax import export as jexport
 

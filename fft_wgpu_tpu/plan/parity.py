@@ -2,7 +2,7 @@
 
 Users of the reference construct `Forward`/`Inverse`/`Onlyinverse`/
 `Normalize` objects bound to a buffer + fft_len and call `.proc(encoder)`
-(fft_wgpu src/processor.rs:7-730).  On TPU there is no caller-owned command
+(fft_wgpu src/processor.rs:7-730).  In JAX there is no caller-owned command
 encoder — composition "into one submission" is function composition under one
 `jax.jit` (the analogue of recording two procs into one encoder,
 examples/basic_inverse2.rs:85-92).  These classes preserve the construct-

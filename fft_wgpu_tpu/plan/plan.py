@@ -1,45 +1,59 @@
-"""Plan-based FFT scheduler (the TPU-native `processor.rs` equivalent).
+"""Plan-based FFT scheduler (the `processor.rs` equivalent).
 
 The reference's public surface is plan-style objects constructed once per
 (buffer, fft_len) and replayed cheaply (`Forward::new` / `proc`,
 fft_wgpu src/processor.rs:7-159).  Here a :class:`Plan` is constructed once
 per transform length; "replay" is calling its jitted executors — XLA caches
-the compiled program, which is the TPU analogue of the reference's cached
+the compiled program, the analogue of the reference's cached
 `ComputePipeline` (processor.rs:161-229).
 
-Executor strategies (the reference's two scheduling strategies — fused
-single-dispatch fft4.wgsl vs per-stage dispatch ifft.wgsl, SURVEY §3.2 —
-map to):
-  * ``"pallas"``  — fused VMEM-resident Pallas kernel (single HBM round trip)
-  * ``"fourstep"``— HBM-level Bailey decomposition for transforms beyond VMEM
-  * ``"xla"``     — pure-jnp mixed-radix (general fallback, any backend)
+Executors (``executor=`` of :class:`Plan`):
+  * ``"auto"``    — resolves to ``"lax"`` on every platform
+  * ``"lax"``     — XLA's own FFT (`jax.lax.fft`; cuFFT on the GPU), any n
+  * ``"fourstep"``— Bailey decomposition n = n1*n2 into two batched sub-FFTs
+  * ``"xla"``     — the jnp DFT-by-matmul mixed-radix recursion
+                    (ops/stockham.py)
+  * ``"direct"``  — one O(n^2) DFT matmul
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from ..core.complex_utils import merge, promote_to_split
 from ..core.twiddle import FORWARD, INVERSE
 from ..ops import stockham
 
-__all__ = ["Plan", "plan", "get_plan"]
+__all__ = ["Plan", "plan", "get_plan", "lax_fft", "EXECUTORS"]
 
-# Fused VMEM-resident Pallas kernel envelope — single source of truth is
-# ops/pallas_fft.py (the re+im f32 working set must fit VMEM with
-# double-buffering headroom); re-exported here for planner callers.
-from ..ops.pallas_fft import FUSED_MAX_N, FUSED_MIN_N  # noqa: E402
+EXECUTORS = ("auto", "lax", "xla", "fourstep", "direct")
 
 
-def _backend() -> str:
-    return jax.default_backend()
-
-
-def _is_pow2(n: int) -> bool:
-    return n > 0 and (n & (n - 1)) == 0
+def lax_fft(z, sign: int, scale=None, ndims: int = 1):
+    """XLA's FFT of complex `z` over its last `ndims` (1-3) axes, times
+    `scale`.  `sign` FORWARD is unscaled; INVERSE is unnormalized, as the
+    split-domain executors are (lax's IFFT divides by the length, which is
+    folded back into the one output multiply)."""
+    lengths = tuple(z.shape[-ndims:])
+    batch = z.shape[:-ndims]
+    total = 1.0 if scale is None else float(scale)
+    # one leading batch axis: XLA's CPU FFT requires a row-major operand,
+    # and with several batch axes its layout assignment may permute them
+    z = z.reshape((-1,) + lengths)
+    if sign == FORWARD:
+        z = lax.fft(z, lax.FftType.FFT, lengths)
+    else:
+        z = lax.fft(z, lax.FftType.IFFT, lengths)
+        total *= math.prod(lengths)
+    z = z.reshape(batch + lengths)
+    if abs(total - 1.0) > 1e-12:
+        z = z * jnp.float32(total)
+    return z
 
 
 class Plan:
@@ -57,30 +71,29 @@ class Plan:
         if n < 1:
             raise ValueError(f"fft length must be >= 1, got {n}")
         self.n = int(n)
-        # The compute path is split re/im float32 with a complex64 facade
-        # (CLAUDE.md invariant); other precisions are not silently accepted.
+        # The compute path is complex64 (split re/im float32 at the
+        # boundary); other precisions are not silently accepted.
         if jnp.dtype(dtype) != jnp.dtype(jnp.complex64):
             raise ValueError(
-                f"unsupported dtype {dtype!r}: plans compute in split-f32 and "
-                "return complex64 (TPU has no f64; use dtype=jnp.complex64)"
+                f"unsupported dtype {dtype!r}: plans compute in float32 and "
+                "return complex64 (use dtype=jnp.complex64)"
             )
         self.dtype = jnp.complex64
-        if executor not in ("auto", "xla", "pallas", "fourstep", "bigfft",
-                            "direct", "pallas:classic", "pallas:dit",
-                            "pallas:balanced"):
-            raise ValueError(f"unknown executor {executor!r}")
+        if executor not in EXECUTORS:
+            raise ValueError(
+                f"unknown executor {executor!r}; expected one of {EXECUTORS}")
         self.executor = executor
         # autotune=True (FFTW_MEASURE analogue): measure the executor
         # candidates on-device once per (n, batch-rows, axis) and use the
-        # winner; executor="auto" heuristics otherwise (plan/autotune.py).
+        # winner; executor="auto" otherwise (plan/autotune.py).
         self.autotune = bool(autotune)
         # donate=True donates the (re, im) input buffers to XLA so replaying
-        # the plan allocates nothing new — the TPU analogue of the
-        # reference's caller-owned in-place ping-pong buffers
+        # the plan allocates nothing new — the analogue of the reference's
+        # caller-owned in-place ping-pong buffers
         # (fft_wgpu src/processor.rs:580-586, parity dance :153-157).
         # The caller's input arrays are INVALIDATED by each call.
         self.donate = bool(donate)
-        # One compiled executable per (axis, sign, scale) — the TPU analogue
+        # One compiled executable per (axis, sign, scale) — the analogue
         # of the reference's cached ComputePipeline (processor.rs:28,161-229).
         # jax.jit adds per-shape caching on top.
         self._jit_cache: dict = {}
@@ -89,27 +102,7 @@ class Plan:
     # executor selection (trace-time; shapes are static under jit)
     # ------------------------------------------------------------------ #
     def _resolve_executor(self) -> str:
-        if self.executor != "auto":
-            return self.executor
-        n = self.n
-        if _backend() == "tpu":
-            # native C++ planner (the reference's plan-construction role,
-            # processor.rs:19-108); python fallback mirrors it exactly
-            from ..core.factor import MAX_DIRECT
-            from ..ops.bluestein import BLUESTEIN_MIN
-            from ..utils import native
-
-            choice = native.plan_choice(
-                n, MAX_DIRECT, FUSED_MIN_N, FUSED_MAX_N, BLUESTEIN_MIN
-            )
-            if choice is not None:
-                return choice[0]
-            if _is_pow2(n):
-                if FUSED_MIN_N <= n <= FUSED_MAX_N:
-                    return "pallas"
-                if n > FUSED_MAX_N:
-                    return "fourstep"
-        return "xla"
+        return "lax" if self.executor == "auto" else self.executor
 
     # ------------------------------------------------------------------ #
     # split-domain executors (re/im pairs, transform along last axis)
@@ -119,51 +112,14 @@ class Plan:
             raise ValueError(
                 f"plan built for n={self.n}, input last axis is {re.shape[-1]}"
             )
-        tuned = ex is not None
-        if not tuned:
-            ex = self._resolve_executor()
-        auto = self.executor == "auto" and not tuned
-        if ex == "pallas" and auto:
-            rows = 1
-            for d in re.shape[:-1]:
-                rows *= d
-            if 0 < rows < 16:
-                # 128-row kernel tiles would be mostly padding
-                ex = "xla"
-        if ex in ("pallas", "pallas:classic", "pallas:dit",
-                  "pallas:balanced"):
-            schedule = {"pallas:classic": "classic",
-                        "pallas:dit": "dit",
-                        "pallas:balanced": "balanced"}.get(ex)
-            try:
-                from ..ops import pallas_fft
-            except ImportError:
-                if not (auto or tuned):
-                    raise
-                ex = "xla"
-            else:
-                try:
-                    return pallas_fft.fft_batched_split(re, im, sign, scale,
-                                                        schedule=schedule)
-                except pallas_fft.Unsupported:
-                    if not (auto or tuned):
-                        raise
-                    ex = "xla"
-        if ex == "bigfft":
-            # explicit single-pass whole-row-in-VMEM kernel (TPU);
-            # out-of-envelope shapes raise so callers see why
-            from ..ops import bigfft
-
-            return bigfft.fft_big_split(re, im, sign, scale)
+        ex = ex or self._resolve_executor()
+        if ex == "lax":
+            z = lax_fft(lax.complex(re, im), sign, scale)
+            return jnp.real(z), jnp.imag(z)
         if ex == "fourstep":
-            try:
-                from ..ops import fourstep
-            except ImportError:
-                if not auto:
-                    raise
-                ex = "xla"
-            else:
-                return fourstep.fft_last_axis(re, im, sign, scale)
+            from ..ops import fourstep
+
+            return fourstep.fft_last_axis(re, im, sign, scale)
         if ex == "direct":
             re, im = stockham._dft_direct(re, im, sign)
             return stockham.apply_scale(re, im, scale)
@@ -172,56 +128,11 @@ class Plan:
 
     def _execute_split_axis(self, re, im, sign: int, scale, axis: int,
                             ex: str | None = None):
-        """Transform along `axis`.
-
-        axis == -1 uses the row kernel; axis == -2 uses the transpose-free
-        sublane-domain kernel on TPU (no data movement at all); any other
-        axis moves to the back and uses the row path.
-        """
-        nd = re.ndim
-        ax = axis % nd
-        if ax == nd - 1:
+        """Transform along `axis`: a non-minor axis moves to the back, is
+        transformed there and moves back."""
+        ax = axis % re.ndim
+        if ax == re.ndim - 1:
             return self._execute_split(re, im, sign, scale, ex)
-        exa = ex if ex is not None else self.executor
-        if exa in ("auto", "pallas", "pallas:classic", "pallas:dit") \
-                and _backend() == "tpu":
-            # Any non-minor axis: flatten the trailing dims into one "lane
-            # batch" and run the transpose-free sublane-domain kernel — no
-            # moveaxis (= no HBM transpose) for ANY axis of an ND transform.
-            try:
-                from ..ops import pallas_fft
-            except ImportError:
-                pass
-            else:
-                try:
-                    shape = re.shape
-                    if ax == nd - 2:
-                        return pallas_fft.fft_axis0_split(re, im, sign, scale)
-                    # ax <= nd-3: merge the dims BETWEEN ax and the minor
-                    # (a non-minor regroup — free view, unlike the
-                    # minor-merging flatten below) and run the axis(-3)
-                    # kernel: zero relayouts (probe_r48: the flatten
-                    # route's hidden relayout cost a full HBM round trip).
-                    mid = 1
-                    for d in shape[ax + 1: nd - 1]:
-                        mid *= d
-                    try:
-                        re3 = re.reshape(*shape[: ax + 1], mid, shape[-1])
-                        im3 = im.reshape(*shape[: ax + 1], mid, shape[-1])
-                        rr, ii = pallas_fft.fft_axis3_split(re3, im3, sign,
-                                                            scale)
-                        return rr.reshape(shape), ii.reshape(shape)
-                    except pallas_fft.Unsupported:
-                        pass
-                    trail = 1
-                    for d in shape[ax + 1:]:
-                        trail *= d
-                    re3 = re.reshape(*shape[: ax + 1], trail)
-                    im3 = im.reshape(*shape[: ax + 1], trail)
-                    rr, ii = pallas_fft.fft_axis0_split(re3, im3, sign, scale)
-                    return rr.reshape(shape), ii.reshape(shape)
-                except pallas_fft.Unsupported:
-                    pass
         re = jnp.moveaxis(re, ax, -1)
         im = jnp.moveaxis(im, ax, -1)
         re, im = self._execute_split(re, im, sign, scale, ex)
@@ -231,11 +142,11 @@ class Plan:
     # public complex-facade methods
     # ------------------------------------------------------------------ #
     def _tuned_for(self, shape, axis: int):
-        """Measured executor for this shape (autotune=True, TPU, executor
-        'auto'); None = use the static heuristics."""
+        """Measured executor for this shape (autotune=True, executor
+        'auto'); None = executor 'auto' as it resolves."""
         if not self.autotune or self.executor != "auto":
             return None
-        if _backend() != "tpu" or shape[axis] != self.n:
+        if shape[axis] != self.n:
             return None
         from . import autotune
 
@@ -245,25 +156,19 @@ class Plan:
         """Cached jitted executor: (re, im) real arrays -> complex64.
 
         The whole transform — axis moves, all stages, scaling, and the
-        complex merge — is one compiled program.  Real-valued at the call
-        boundary and complex-valued at the return: complex arrays never
-        cross host->device (unsupported on some TPU runtimes), while the
-        returned device-resident complex64 composes freely under jit.
+        complex merge — is one compiled program that takes planar float32
+        and returns a device-resident complex64.
         """
         key = (axis, sign, scale, ex)
         fn = self._jit_cache.get(key)
         if fn is None:
 
             def impl(re, im):
-                moved = axis not in (-1, re.ndim - 1)
-                if moved:
-                    re = jnp.moveaxis(re, axis, -1)
-                    im = jnp.moveaxis(im, axis, -1)
-                re, im = self._execute_split(re, im, sign, scale, ex)
-                if moved:
-                    re = jnp.moveaxis(re, -1, axis)
-                    im = jnp.moveaxis(im, -1, axis)
-                return merge(re, im)
+                if (ex or self._resolve_executor()) == "lax":
+                    z = jnp.moveaxis(lax.complex(re, im), axis, -1)
+                    return jnp.moveaxis(lax_fft(z, sign, scale), -1, axis)
+                return merge(*self._execute_split_axis(re, im, sign, scale,
+                                                       axis, ex))
 
             if self.donate:
                 fn = jax.jit(impl, donate_argnums=(0, 1))

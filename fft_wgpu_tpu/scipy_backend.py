@@ -5,13 +5,13 @@ scipy.fft dispatches through uarray, so any object exposing
 import is needed to define one.  Usage::
 
     import scipy.fft as sf
-    import fft_wgpu_tpu.scipy_backend as tpu_fft
+    import fft_wgpu_tpu.scipy_backend as ftt_fft
 
-    with sf.set_backend(tpu_fft):          # scoped
+    with sf.set_backend(ftt_fft):          # scoped
         X = sf.fft(x)
-    tpu_fft.install()                      # or process-global
+    ftt_fft.install()                      # or process-global
 
-Existing scipy.fft call sites then execute on the TPU kernels unchanged.
+Existing scipy.fft call sites then execute on the device unchanged.
 Outputs are returned as host numpy (complex fetched via the planar-f32
 transfer helpers — some runtimes cannot move complex across the
 host<->device boundary).  This is the eager/interop path; for

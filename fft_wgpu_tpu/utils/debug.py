@@ -3,9 +3,8 @@
 The reference relies on WGSL implicit bounds clamping and per-stage
 `workgroupBarrier` for correctness (fft4.wgsl:34,93); our equivalents:
 
-* `validate_kernel(n)` — run the fused Pallas kernel in interpret mode
-  (serial, bounds-checked) against the f64 naive-DFT oracle; catches
-  index-map and layout bugs without TPU hardware.
+* `validate_kernel(n)` — run the plan layer's "auto" executor against the
+  f64 naive-DFT oracle on whatever device JAX has.
 * `check_finite` — checkify-style NaN/Inf guard around any executor.
 """
 
@@ -21,17 +20,17 @@ __all__ = ["validate_kernel", "check_finite"]
 
 def validate_kernel(n: int, batch: int = 4, sign: int = -1, seed: int = 0,
                     tol: float = 1e-5) -> float:
-    """Interpret-mode fused kernel vs f64 naive DFT; returns rel-L2 error.
+    """The "auto" executor vs the f64 naive DFT; returns rel-L2 error.
 
     Raises AssertionError above `tol`.
     """
-    from ..ops import pallas_fft
+    from ..plan.plan import get_plan
 
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal((batch, n)) + 1j * rng.standard_normal((batch, n)))
     re = jnp.asarray(x.real, jnp.float32)
     im = jnp.asarray(x.imag, jnp.float32)
-    rr, ii = pallas_fft.fft_batched_split(re, im, sign, None, interpret=True)
+    rr, ii = get_plan(n)._execute_split(re, im, sign, None)
     got = np.asarray(rr) + 1j * np.asarray(ii)
     want = naive_dft(x) if sign == -1 else naive_dft(x.conj()).conj()
     err = float(np.linalg.norm(got - want) / np.linalg.norm(want))

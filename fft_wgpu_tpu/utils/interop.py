@@ -2,9 +2,8 @@
 
 The reference framework's would-be users often arrive from torch.fft
 pipelines; these helpers move tensors across with the framework's
-complex-boundary discipline (CLAUDE.md invariant: complex NEVER crosses
-host<->device — it is staged as planar float32 via utils/io.py, which
-some TPU runtimes require).
+complex-boundary discipline (complex is staged as planar float32 via
+utils/io.py).
 
 Real tensors ride DLPack when possible (zero-copy on CPU torch -> CPU
 jax; a single H2D otherwise); complex tensors are split on the host

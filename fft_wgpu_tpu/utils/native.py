@@ -2,9 +2,10 @@
 
 The reference keeps its host/runtime layer in native code (Rust: plan
 construction, f64 twiddle precompute — fft_wgpu src/processor.rs:43-49,
-pipeline factories processor.rs:161-229).  Our TPU-native equivalent is a
-small C++ library that owns the host-side numeric precompute (f64 DFT
-matrices / twiddle tables) and plan factorization.  It is built on demand
+pipeline factories processor.rs:161-229).  Our equivalent is a small C++
+library that owns the host-side numeric precompute (f64 DFT matrices /
+twiddle tables), the mixed-radix factorization and the planar complex
+codec.  It is built on demand
 with g++; every entry point has a pure-numpy fallback so the framework works
 without a toolchain.
 """
@@ -75,11 +76,6 @@ def get_lib():
                 ctypes.c_int64,
             ]
             lib.fftcore_factorize.restype = ctypes.c_int64
-            lib.fftcore_plan.argtypes = [ctypes.c_int64] * 5 + [
-                ctypes.POINTER(ctypes.c_int64),
-                ctypes.POINTER(ctypes.c_int64),
-            ]
-            lib.fftcore_plan.restype = ctypes.c_int64
             try:  # planar codec (absent in pre-codec builds of the .so)
                 fp = ctypes.POINTER(ctypes.c_float)
                 dp = ctypes.POINTER(ctypes.c_double)
@@ -123,26 +119,6 @@ def twiddle_f64(n1: int, n2: int, sign: int):
     wi = np.empty((n1, n2), dtype=np.float64)
     lib.fftcore_twiddle(n1, n2, sign, _dptr(wr), _dptr(wi))
     return wr, wi
-
-
-PLAN_EXECUTORS = {0: "direct", 1: "pallas", 2: "fourstep", 3: "xla", 4: "xla"}
-
-
-def plan_choice(n: int, max_direct: int, fused_min: int, fused_max: int,
-                bluestein_min: int):
-    """Native plan decision: (executor_name, n1, n2), or None without the
-    C++ core.  Code 4 (Bluestein) executes through the xla path, which
-    dispatches to the chirp-z module for non-smooth lengths."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    n1 = ctypes.c_int64(0)
-    n2 = ctypes.c_int64(0)
-    code = lib.fftcore_plan(
-        n, max_direct, fused_min, fused_max, bluestein_min,
-        ctypes.byref(n1), ctypes.byref(n2),
-    )
-    return PLAN_EXECUTORS[int(code)], int(n1.value), int(n2.value)
 
 
 def factorize(n: int, max_radix: int):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Generate docs/API.md: one line per public symbol (first docstring
 sentence), grouped by module.  Run on CPU:
-    PYTHONPATH=/root/repo python scripts/gen_api_index.py
+    python scripts/gen_api_index.py
 """
 import inspect
 import os

@@ -1,53 +1,43 @@
 """Test configuration.
 
-Correctness tests run on CPU with 8 virtual devices so the multi-chip
-sharding paths are exercised without TPU hardware (the fake-backend
-mechanism the reference lacks — SURVEY §4).  Must run before jax is
-imported anywhere in the test process.
+Correctness tests run on CPU with 8 virtual devices so the multi-card
+sharding paths are exercised without GPUs (the fake-backend mechanism the
+reference lacks — SURVEY §4).  Must run before jax is imported anywhere in
+the test process.
+
+Tests marked `gpu` need an NVIDIA GPU: they take the `gpu` fixture, which
+skips them unless JAX's default backend is a GPU.  On a machine with a
+card, run them with the platform left to JAX:
+
+    JAX_PLATFORMS=cuda python -m pytest tests/ -m gpu -q
 """
 
 import os
 
-# FFT_WGPU_TPU_HW=1 switches to the hardware tier: the real TPU backend,
-# running ONLY the `-m tpu` tests (everything else auto-skips because it
-# expects the 8-device virtual CPU mesh).  Usage:
-#   FFT_WGPU_TPU_HW=1 python -m pytest tests/ -m tpu -q
-_HW_TIER = os.environ.get("FFT_WGPU_TPU_HW") == "1"
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in flags:
+    flags += " --xla_force_host_platform_device_count=8"
+# single-threaded CPU runtime: XLA's CPU FFT splits rows over threads by
+# how many are free, which changes the last bit of a result from one call
+# to the next; tests that compare two computations of the same value
+# need it reproducible
+if "xla_cpu_multi_thread_eigen" not in flags:
+    flags += " --xla_cpu_multi_thread_eigen=false"
+os.environ["XLA_FLAGS"] = flags.strip()
 
-if not _HW_TIER:
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + " --xla_force_host_platform_device_count=8"
-        ).strip()
-
-# jax may already be imported by the interpreter environment; the backend is
-# initialized lazily, so forcing the platform via config still works as long
-# as no device has been touched yet.
 import jax  # noqa: E402
-
-if not _HW_TIER:
-    jax.config.update("jax_platforms", "cpu")
-    assert jax.default_backend() == "cpu", "tests must run on the CPU backend"
-    assert jax.device_count() == 8, "tests expect 8 virtual CPU devices"
-
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
-def pytest_collection_modifyitems(config, items):
-    if _HW_TIER:
-        skip = pytest.mark.skip(reason="CPU-mesh test (hardware tier active)")
-        for item in items:
-            if "tpu" not in item.keywords:
-                item.add_marker(skip)
-    else:
-        skip = pytest.mark.skip(
-            reason="hardware test: run with FFT_WGPU_TPU_HW=1 -m tpu")
-        for item in items:
-            if "tpu" in item.keywords:
-                item.add_marker(skip)
+@pytest.fixture
+def gpu():
+    """Skip unless JAX runs on an NVIDIA GPU (decided per test, never at
+    import or collection, so every worker collects the same tests)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs an NVIDIA GPU: run with JAX_PLATFORMS=cuda -m gpu")
+    return jax.devices()[0]
 
 
 @pytest.fixture

@@ -1,10 +1,10 @@
-"""Autodiff through the Pallas kernels (custom VJPs).
+"""Autodiff through the plan layer's executors and the real transforms.
 
-pallas_call has no AD rule; each kernel carries a custom_vjp exploiting
-linearity (adjoint = sign-flipped transform; R2C/C2R are an adjoint
-pair).  Oracles: jax.grad of the same loss through jnp.fft.  Kernels run
-in interpret mode on this CPU tier; the same VJPs wrap the real TPU
-kernels (the only backend-dependent part is the primal).
+No executor carries a custom VJP: the "lax" route differentiates through
+`lax.fft`'s own transpose rule, the others through plain jnp.  Every
+transform is linear, so its gradient is checked against the linear
+adjoint (the sign-flipped, unscaled transform of the cotangent) and
+against jax.grad through jnp.fft of the same loss.
 """
 
 import numpy as np
@@ -13,8 +13,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from fft_wgpu_tpu.ops import bigfft
-from fft_wgpu_tpu.ops import pallas_fft as pf
+from fft_wgpu_tpu.plan.plan import Plan
 
 
 def _relg(a, b):
@@ -28,8 +27,37 @@ def data(rng):
     return n, mk
 
 
+@pytest.mark.parametrize("executor,n", [
+    (ex, n) for ex in ("lax", "xla", "fourstep") for n in (256, 1000, 521)
+] + [("direct", 256), ("direct", 521)])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_grad_executor_is_linear_adjoint(executor, n, sign, rng):
+    """d/dx <W, F x> = F^H W: the sign-flipped transform of the
+    cotangent, with the same scale."""
+    p = Plan(n, executor=executor)
+    mk = lambda *s: jnp.asarray(rng.standard_normal(s).astype(np.float32))
+    re, im, wr, wi = mk(3, n), mk(3, n), mk(3, n), mk(3, n)
+    scale = None if sign == -1 else 1.0 / n
+
+    def loss(a, b):
+        Xr, Xi = p._execute_split(a, b, sign, scale)
+        return jnp.sum(Xr * wr + Xi * wi)
+
+    gr, gi = jax.jit(jax.grad(loss, argnums=(0, 1)))(re, im)
+    W = np.asarray(wr, np.float64) + 1j * np.asarray(wi, np.float64)
+    # F = s * DFT_sign; F^H W = s * DFT_{-sign} W (unnormalized)
+    adj = (np.fft.fft(W, axis=-1) if sign == +1
+           else np.fft.ifft(W, axis=-1) * n) * (scale or 1.0)
+    got = np.asarray(gr) + 1j * np.asarray(gi)
+    err = np.linalg.norm(got - adj) / np.linalg.norm(adj)
+    assert err < 1e-5, f"{executor} n={n} sign={sign}: {err:.3e}"
+
+
 def test_grad_fft_batched(data):
+    from fft_wgpu_tpu.plan.plan import get_plan
+
     n, mk = data
+    p = get_plan(n)
     re, im, wr, wi = mk(4, n), mk(4, n), mk(4, n), mk(4, n)
 
     def loss(fft):
@@ -38,27 +66,29 @@ def test_grad_fft_batched(data):
             return jnp.sum(Xr * wr + Xi * wi)
         return jax.grad(f, argnums=(0, 1))(re, im)
 
-    g1 = loss(lambda a, b: pf.fft_batched_split(a, b, -1, interpret=True))
+    g1 = loss(lambda a, b: p._execute_split(a, b, -1, None))
     g2 = loss(lambda a, b: (
         jnp.real(jnp.fft.fft(jax.lax.complex(a, b), axis=-1)),
         jnp.imag(jnp.fft.fft(jax.lax.complex(a, b), axis=-1))))
     assert _relg(g1[0], g2[0]) < 1e-5 and _relg(g1[1], g2[1]) < 1e-5
     # inverse with folded scale
-    g3 = loss(lambda a, b: pf.fft_batched_split(a, b, +1, 1.0 / n,
-                                                interpret=True))
+    g3 = loss(lambda a, b: p._execute_split(a, b, +1, 1.0 / n))
     g4 = loss(lambda a, b: (
         jnp.real(jnp.fft.ifft(jax.lax.complex(a, b), axis=-1)),
         jnp.imag(jnp.fft.ifft(jax.lax.complex(a, b), axis=-1))))
     assert _relg(g3[0], g4[0]) < 1e-5 and _relg(g3[1], g4[1]) < 1e-5
 
 
-def test_grad_axis0_and_rows_t(data):
+def test_grad_non_minor_axis(data):
+    from fft_wgpu_tpu.plan.plan import get_plan
+
     n, mk = data
     re, im = mk(2, 256, 256), mk(2, 256, 256)
     wr, wi = mk(2, 256, 256), mk(2, 256, 256)
+    p = get_plan(256)
 
     def f(a, b):
-        Xr, Xi = pf.fft_axis0_split(a, b, -1, interpret=True)
+        Xr, Xi = p._execute_split_axis(a, b, -1, None, -2)
         return jnp.sum(Xr * wr + Xi * wi)
 
     def fr(a, b):
@@ -69,35 +99,17 @@ def test_grad_axis0_and_rows_t(data):
     g2 = jax.grad(fr, argnums=(0, 1))(re, im)
     assert _relg(g1[0], g2[0]) < 1e-5 and _relg(g1[1], g2[1]) < 1e-5
 
-    # rows_t with outer twiddle (the four-step pass 2)
-    wtr, wti = mk(256, 2), mk(256, 2)
 
-    def g(a, b):
-        Xr, Xi = pf.fft_rows_transposed_split(
-            a, b, -1, outer=(2, 2 * 256), interpret=True)
-        return jnp.sum(Xr * wtr + Xi * wti)
+@pytest.mark.parametrize("n", [1024, 1001])
+def test_grad_rfft_irfft(n, rng):
+    from fft_wgpu_tpu.ops.rfft import irfft_last_split, rfft_last_split
 
-    def gref(a, b):
-        r = jnp.arange(2, dtype=jnp.float32)[:, None]
-        m = jnp.arange(256, dtype=jnp.float32)[None, :]
-        tw = jnp.exp(-2j * jnp.pi * r * m / (2 * 256))
-        X = jnp.fft.fft(jax.lax.complex(a, b) * tw, axis=-1)
-        Xt = jnp.swapaxes(X, -1, -2)
-        return jnp.sum(jnp.real(Xt) * wtr + jnp.imag(Xt) * wti)
-
-    a2, b2 = mk(2, 256), mk(2, 256)
-    h1 = jax.grad(g, argnums=(0, 1))(a2, b2)
-    h2 = jax.grad(gref, argnums=(0, 1))(a2, b2)
-    assert _relg(h1[0], h2[0]) < 1e-5 and _relg(h1[1], h2[1]) < 1e-5
-
-
-def test_grad_rfft_irfft(data):
-    n, mk = data
+    mk = lambda *s: jnp.asarray(rng.standard_normal(s).astype(np.float32))
     x = mk(4, n)
     wr, wi = mk(4, n // 2 + 1), mk(4, n // 2 + 1)
 
     def f(a):
-        Xr, Xi = pf.rfft_rows_split(a, None, interpret=True)
+        Xr, Xi = rfft_last_split(a, None)
         return jnp.sum(Xr * wr + Xi * wi)
 
     def fr(a):
@@ -109,10 +121,13 @@ def test_grad_rfft_irfft(data):
     Xr, Xi, wv = mk(4, n // 2 + 1), mk(4, n // 2 + 1), mk(4, n)
 
     def g(a, b):
-        return jnp.sum(pf.irfft_rows_split(a, b, n, 1.0 / n,
-                                           interpret=True) * wv)
+        return jnp.sum(irfft_last_split(a, b, n, 1.0 / n) * wv)
 
     def gr(a, b):
+        # the same map: DC (and Nyquist) imaginary parts discarded
+        b = b.at[..., 0].set(0.0)
+        if n % 2 == 0:
+            b = b.at[..., n // 2].set(0.0)
         return jnp.sum(jnp.fft.irfft(jax.lax.complex(a, b), n=n,
                                      axis=-1) * wv)
 
@@ -121,13 +136,16 @@ def test_grad_rfft_irfft(data):
     assert _relg(g1[0], g2[0]) < 1e-5 and _relg(g1[1], g2[1]) < 1e-5
 
 
-def test_grad_bigfft(rng):
+def test_grad_large_single_row(rng):
+    from fft_wgpu_tpu.plan.plan import get_plan
+
     n = 1 << 15
+    p = get_plan(n)
     mk = lambda *s: jnp.asarray(rng.standard_normal(s).astype(np.float32))
     re, im, wr, wi = mk(1, n), mk(1, n), mk(1, n), mk(1, n)
 
     def f(a, b):
-        Xr, Xi = bigfft.fft_big_split(a, b, -1, interpret=True)
+        Xr, Xi = p._execute_split(a, b, -1, None)
         return jnp.sum(Xr * wr + Xi * wi)
 
     def fr(a, b):
@@ -140,19 +158,21 @@ def test_grad_bigfft(rng):
 
 
 def test_jvp_forward_mode(data):
-    """linear_call gives forward-mode too: jvp(tangent) == fft(tangent)."""
+    """Forward mode: jvp(tangent) == fft(tangent) for a linear map."""
+    from fft_wgpu_tpu.ops.rfft import rfft_last_split
+    from fft_wgpu_tpu.plan.plan import get_plan
+
     n, mk = data
+    p = get_plan(n)
     re, im, tr, ti = mk(2, n), mk(2, n), mk(2, n), mk(2, n)
     _, (dr, di) = jax.jvp(
-        lambda a, b: pf.fft_batched_split(a, b, -1, interpret=True),
-        (re, im), (tr, ti))
+        lambda a, b: p._execute_split(a, b, -1, None), (re, im), (tr, ti))
     ref = jnp.fft.fft(jax.lax.complex(tr, ti), axis=-1)
     assert _relg(dr, jnp.real(ref)) < 1e-5
     assert _relg(di, jnp.imag(ref)) < 1e-5
 
     x, tx = mk(2, n), mk(2, n)
-    _, (dR, dI) = jax.jvp(
-        lambda a: pf.rfft_rows_split(a, None, interpret=True), (x,), (tx,))
+    _, (dR, dI) = jax.jvp(lambda a: rfft_last_split(a, None), (x,), (tx,))
     refr = jnp.fft.rfft(tx, axis=-1)
     assert _relg(dR, jnp.real(refr)) < 1e-5
     assert _relg(dI, jnp.imag(refr)) < 1e-5
@@ -177,7 +197,9 @@ class TestNewOpsAD:
         # numerical directional derivative
         dr = jnp.asarray(rng.standard_normal(n).astype(np.float32))
         di = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-        eps = 1e-3
+        # the loss is quadratic, so the central difference is exact for
+        # any step: a large one keeps f32 cancellation out of it
+        eps = 1e-1
         f1 = loss(xr + eps * dr, xi + eps * di)
         f0 = loss(xr - eps * dr, xi - eps * di)
         num = (f1 - f0) / (2 * eps)

@@ -1,55 +1,44 @@
 """Autotuned executor selection (plan(n, autotune=True) — FFTW_MEASURE
-analogue).  CPU tier: candidate enumeration, caching, and the no-op path
-off-TPU; the measurement itself is exercised by the hardware tier."""
+analogue): candidate enumeration, caching, wisdom persistence and the
+executor names a plan accepts."""
+
+import json
 
 import numpy as np
 import pytest
 
 import fft_wgpu_tpu as ftt
 from fft_wgpu_tpu.plan import autotune
-from fft_wgpu_tpu.plan.plan import Plan
+from fft_wgpu_tpu.plan.plan import EXECUTORS, Plan
+
+REMOVED = ("pallas", "pallas:classic", "pallas:dit", "pallas:balanced",
+           "bigfft", "pallas:bogus")
 
 
 class TestCandidates:
-    def test_tpu_fused_envelope(self):
-        c = autotune.candidates_for(4096, 4096, "tpu")
-        assert "pallas:classic" in c and "pallas:dit" in c
-        assert "xla" not in c  # big batches never want XLA on TPU
+    @pytest.mark.parametrize("n,rows,want", [
+        (4096, 4096, ["lax", "xla", "fourstep"]),
+        (4095, 64, ["lax", "xla", "fourstep"]),
+        (1 << 20, 1, ["lax", "xla", "fourstep"]),
+        (4093, 8, ["lax", "xla"]),          # prime: four-step cannot split
+        (2, 1, ["lax", "xla"]),             # 2 = 1 x 2: nothing to split
+    ])
+    def test_candidates(self, n, rows, want):
+        assert autotune.candidates_for(n, rows) == want
 
-    def test_tpu_small_batch_includes_xla(self):
-        assert "xla" in autotune.candidates_for(4096, 8, "tpu")
-
-    def test_tpu_beyond_vmem(self):
-        c = autotune.candidates_for(1 << 20, 1, "tpu")
-        assert c == ["bigfft", "fourstep"]
-        # batched large-N: bigfft is single-row only
-        assert autotune.candidates_for(1 << 20, 4, "tpu") == ["fourstep"]
-
-    def test_cpu_and_non_pow2(self):
-        assert autotune.candidates_for(4096, 64, "cpu") == ["xla"]
-        assert autotune.candidates_for(4095, 64, "tpu") == ["xla"]
+    @pytest.mark.parametrize("n", [1, 7, 512, 1000, 4093, 1 << 22])
+    def test_candidates_are_accepted_executors(self, n):
+        for ex in autotune.candidates_for(n, 8):
+            assert ex in EXECUTORS and ex != "auto"
+            assert ex not in REMOVED
 
 
 class TestMeasureCaching:
-    def test_single_candidate_skips_measurement(self, monkeypatch):
-        autotune.TUNE_CACHE.clear()
-        monkeypatch.setattr(autotune, "_wisdom_loaded", True)
-        monkeypatch.setattr(autotune, "save_wisdom", lambda *a, **k: None)
-        calls = []
-        monkeypatch.setattr(autotune, "_slope_time",
-                            lambda *a, **k: calls.append(1) or 1.0)
-        p = Plan(4095, autotune=True)
-        monkeypatch.setattr(autotune.jax, "default_backend", lambda: "tpu")
-        ex = autotune.measure_executor(p, (4, 4095), -1)
-        assert ex == "xla"
-        assert not calls  # one candidate: nothing to measure
-
     def test_picks_fastest_and_caches(self, monkeypatch):
         autotune.TUNE_CACHE.clear()
         monkeypatch.setattr(autotune, "_wisdom_loaded", True)
         monkeypatch.setattr(autotune, "save_wisdom", lambda *a, **k: None)
-        times = {"pallas:classic": 3.0, "pallas:dit": 1.0,
-                 "pallas:balanced": 2.0}
+        times = {"lax": 3.0, "xla": 1.0, "fourstep": 2.0}
         measured = []
 
         def fake_slope(fn, shape, **kw):
@@ -59,14 +48,12 @@ class TestMeasureCaching:
             return times[ex]
 
         monkeypatch.setattr(autotune, "_slope_time", fake_slope)
-        monkeypatch.setattr(autotune.jax, "default_backend", lambda: "tpu")
         p = Plan(16384, autotune=True)
         ex = autotune.measure_executor(p, (256, 16384), -1)
-        assert ex == "pallas:dit"
-        assert set(measured) == {"pallas:classic", "pallas:dit",
-                                 "pallas:balanced"}
+        assert ex == "xla"
+        assert set(measured) == {"lax", "xla", "fourstep"}
         measured.clear()
-        assert autotune.measure_executor(p, (256, 16384), -1) == "pallas:dit"
+        assert autotune.measure_executor(p, (256, 16384), -1) == "xla"
         assert not measured  # cached
         autotune.TUNE_CACHE.clear()
 
@@ -77,127 +64,107 @@ class TestMeasureCaching:
 
         def fake_slope(fn, shape, **kw):
             ex = fn.__defaults__[0]
-            if ex == "pallas:dit":
+            if ex == "lax":
                 raise RuntimeError("does not compile")
-            return 2.0
+            return {"xla": 2.0, "fourstep": 1.0}[ex]
 
         monkeypatch.setattr(autotune, "_slope_time", fake_slope)
-        monkeypatch.setattr(autotune.jax, "default_backend", lambda: "tpu")
         p = Plan(4096, autotune=True)
         ex = autotune.measure_executor(p, (512, 4096), -1)
-        assert ex == "pallas:classic"
+        assert ex == "fourstep"
+        autotune.TUNE_CACHE.clear()
+
+    def test_rows_bucket_separates_regimes(self, monkeypatch):
+        autotune.TUNE_CACHE.clear()
+        monkeypatch.setattr(autotune, "_wisdom_loaded", True)
+        monkeypatch.setattr(autotune, "save_wisdom", lambda *a, **k: None)
+        calls = []
+        monkeypatch.setattr(
+            autotune, "_slope_time",
+            lambda fn, shape, **k: calls.append(shape) or 1.0)
+        p = Plan(256, autotune=True)
+        autotune.measure_executor(p, (1, 256), -1)
+        autotune.measure_executor(p, (8, 256), -1)
+        autotune.measure_executor(p, (4096, 256), -1)
+        autotune.measure_executor(p, (2048, 256), -1)  # same bucket: cached
+        assert len({k[2] for k in autotune.TUNE_CACHE}) == 3
+        assert len(calls) == 3 * len(autotune.candidates_for(256, 8))
         autotune.TUNE_CACHE.clear()
 
 
 class TestPlanIntegration:
-    def test_autotune_plan_correct_on_cpu(self, rng):
+    def test_autotune_plan_correct_on_cpu(self, rng, monkeypatch):
+        monkeypatch.setattr(autotune, "save_wisdom", lambda *a, **k: None)
+        monkeypatch.setattr(autotune, "_wisdom_loaded", True)
         x = (rng.standard_normal((8, 512))
              + 1j * rng.standard_normal((8, 512))).astype(np.complex64)
         p = ftt.plan(512, autotune=True)
         got = np.asarray(ftt.device_get_complex(p.forward(x)))
         np.testing.assert_allclose(got, np.fft.fft(x, axis=-1), rtol=2e-5,
                                    atol=2e-4)
-        # off-TPU the tuner is a no-op: nothing cached for this n
-        assert not any(k[1] == 512 for k in autotune.TUNE_CACHE)
+        # the measured winner is cached for this (backend, n, rows, axis)
+        hits = [v for k, v in autotune.TUNE_CACHE.items() if k[1] == 512]
+        assert hits and hits[0] in autotune.candidates_for(512, 8)
+        autotune.TUNE_CACHE.clear()
 
-    def test_schedule_executor_names_accepted(self):
-        for ex in ("pallas:classic", "pallas:dit"):
-            assert ftt.plan(1024, executor=ex).executor == ex
+    @pytest.mark.parametrize("ex", EXECUTORS)
+    def test_executor_names_accepted(self, ex):
+        assert ftt.plan(1024, executor=ex).executor == ex
 
-    def test_invalid_executor_rejected(self):
+    @pytest.mark.parametrize("ex", REMOVED)
+    def test_removed_executor_rejected(self, ex):
         with pytest.raises(ValueError):
-            ftt.plan(512, executor="pallas:bogus")
+            ftt.plan(512, executor=ex)
+
+    @pytest.mark.parametrize("n", [1, 512, 1000, 4093, 1 << 22])
+    def test_auto_resolves_to_lax(self, n):
+        assert Plan(n)._resolve_executor() == "lax"
 
 
-# --------------------------------------------------------------------- #
-# balanced-split tuning (tune_balanced)
-# --------------------------------------------------------------------- #
-
-def test_split_candidates_shape():
-    from fft_wgpu_tpu.plan.autotune import split_candidates
-
-    cands = split_candidates(4096)
-    assert (256, 16, (4, 8, 8)) in cands
-    assert (64, 64, (4, 4, 4)) in cands
-    for n1, n2, chain in cands:
-        assert n1 * n2 == 4096
-        assert 8 <= n2 <= 128
-        prod = 1
-        for f in chain:
-            prod *= f
-        assert prod == n1
-    assert split_candidates(97) == []  # non-pow2: nothing
-
-
-def test_tune_balanced_requires_tpu():
-    from fft_wgpu_tpu.plan.autotune import tune_balanced
-
-    with pytest.raises(RuntimeError):
-        tune_balanced(4096)
-
-
-def test_split_wisdom_roundtrip(tmp_path):
-    from fft_wgpu_tpu.plan import autotune as at
-
+def test_wisdom_roundtrip(tmp_path):
     p = str(tmp_path / "wisdom.json")
-    at.SPLIT_CACHE[("TPU v5 lite", 4096)] = (256, 16, (4, 8, 8))
-    at.save_wisdom(p)
-    at.SPLIT_CACHE.clear()
-    at.load_wisdom(p)
-    assert at.SPLIT_CACHE[("TPU v5 lite", 4096)] == (256, 16, (4, 8, 8))
-    del at.SPLIT_CACHE[("TPU v5 lite", 4096)]
-
-
-def test_tune_extras_require_tpu():
-    from fft_wgpu_tpu.plan.autotune import tune_ax0_tile, tune_fused_plane
-
-    with pytest.raises(RuntimeError):
-        tune_ax0_tile(256)
-    with pytest.raises(RuntimeError):
-        tune_fused_plane()
-
-
-def test_extras_wisdom_roundtrip(tmp_path):
-    from fft_wgpu_tpu.plan import autotune as at
-
-    p = str(tmp_path / "wisdom.json")
-    at.AX0_CACHE[("TPU vX", 256)] = 512
-    at.PLANE_CACHE["TPU vX"] = 65536
+    key = ("gpu", 4096, 1024, -1)
+    autotune.TUNE_CACHE[key] = "lax"
+    autotune.OVERLAP_CACHE[("NVIDIA H100 80GB HBM3", 4)] = 2
     try:
-        at.save_wisdom(p)
-        at.AX0_CACHE.clear()
-        at.PLANE_CACHE.clear()
-        at.load_wisdom(p)
-        assert at.AX0_CACHE[("TPU vX", 256)] == 512
-        assert at.PLANE_CACHE["TPU vX"] == 65536
+        autotune.save_wisdom(p)
+        autotune.TUNE_CACHE.clear()
+        autotune.OVERLAP_CACHE.clear()
+        autotune.load_wisdom(p)
+        assert autotune.TUNE_CACHE[key] == "lax"
+        assert autotune.OVERLAP_CACHE[("NVIDIA H100 80GB HBM3", 4)] == 2
     finally:
-        at.AX0_CACHE.pop(("TPU vX", 256), None)
-        at.PLANE_CACHE.pop("TPU vX", None)
+        autotune.TUNE_CACHE.pop(key, None)
+        autotune.OVERLAP_CACHE.pop(("NVIDIA H100 80GB HBM3", 4), None)
 
 
 def test_wisdom_toolchain_stamp_invalidates(tmp_path):
     # wisdom measured on another jax/jaxlib (or the legacy unstamped
-    # format) must be discarded, not trusted (VERDICT r2 weak #8)
-    import json
-
-    from fft_wgpu_tpu.plan import autotune as at
-
+    # format) must be discarded, not trusted
     p = str(tmp_path / "wisdom.json")
-    at.SPLIT_CACHE[("TPU vY", 4096)] = (64, 64, (4, 4, 4))
+    key = ("gpu", 777, 8, -1)
+    autotune.TUNE_CACHE[key] = "xla"
     try:
-        at.save_wisdom(p)
+        autotune.save_wisdom(p)
     finally:
-        del at.SPLIT_CACHE[("TPU vY", 4096)]
+        del autotune.TUNE_CACHE[key]
     data = json.load(open(p))
-    assert data["__toolchain__"] == at._toolchain_stamp()
+    assert data["__toolchain__"] == autotune._toolchain_stamp()
 
     # stale stamp -> ignored
     data["__toolchain__"] = "jax=0.0.0;jaxlib=0.0.0"
     json.dump(data, open(p, "w"))
-    at.load_wisdom(p)
-    assert ("TPU vY", 4096) not in at.SPLIT_CACHE
+    autotune.load_wisdom(p)
+    assert key not in autotune.TUNE_CACHE
 
     # legacy flat format (no stamp) -> ignored
-    json.dump({"split|TPU vY|4096": [64, 64, [4, 4, 4]]}, open(p, "w"))
-    at.load_wisdom(p)
-    assert ("TPU vY", 4096) not in at.SPLIT_CACHE
+    json.dump({"gpu|777|8|-1": "xla"}, open(p, "w"))
+    autotune.load_wisdom(p)
+    assert key not in autotune.TUNE_CACHE
+
+
+def test_wisdom_lives_in_the_checkout():
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert os.path.dirname(autotune._WISDOM_PATH) == repo

@@ -39,6 +39,6 @@ def test_bluestein_direct_call(rng, assert_close):
 
 
 def test_small_prime_stays_direct(rng, assert_close):
-    # below BLUESTEIN_MIN the direct MXU matmul is used — still correct
+    # below BLUESTEIN_MIN the direct DFT matmul is used — still correct
     x = crand(rng, 251)
     assert_close(ftt.fft(x), np.fft.fft(x))

@@ -1,13 +1,10 @@
-"""Gradients through the fused Bluestein/CZT chirp kernels (ADVICE r4).
+"""Gradients through the chirp-z paths and the spectrum-product C2R.
 
-fft_chirp_forward_split / fft_chirp_inverse_split carry HAND-WRITTEN
-linear_call transposes (pallas_fft.py) that no test reached: the CPU
-suite never routes to them (backend-gated) and the hardware tier tests
-forward numerics only — a wrong adjoint would ship silently.  These
-tests run the real TPU routing with the kernels interpreted (the
-fake-tpu mechanism of tests/test_padded_adoption.py) and compare
-jax.grad through the fused path against jax.grad through a composed
-jnp.fft implementation of the SAME linear map.
+Bluestein (ops/bluestein.py), the chirp-z transform (ops/czt.py) and the
+fftconvolve epilogue (a spectrum product, then ops/rfft.irfft_last_split)
+are compositions of elementwise chirps and plan-layer FFTs; jax.grad
+through them is compared with jax.grad through a composed jnp.fft
+implementation of the SAME linear map.
 """
 
 from __future__ import annotations
@@ -16,24 +13,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-
-from fft_wgpu_tpu.ops import pallas_fft as pf
-
-
-@pytest.fixture
-def fake_tpu(monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(pf, "_FORCE_INTERPRET", True)
-    from fft_wgpu_tpu.utils.jit_cache import _CACHE
-
-    _CACHE.clear()  # cached executables skip re-tracing (spies/backend)
-    yield
-    # traces made under the faked backend must not leak into other tests
-    jax.clear_caches()
-    _CACHE.clear()
-    from fft_wgpu_tpu.plan.plan import get_plan
-
-    get_plan.cache_clear()
 
 
 def _grads(fn, re, im, Wr, Wi):
@@ -54,120 +33,104 @@ def _close(got, want, tol, what):
         assert err < tol, f"{what} d{part}: rel {err:.3e} >= {tol}"
 
 
-def test_chirp_forward_grad(fake_tpu, rng):
-    """y = FFT_m(zero_pad(h .* x)) — adjoint vs composed jnp.fft."""
-    rows, n_p, m = 8, 256, 512
-    re = jnp.asarray(rng.standard_normal((rows, n_p)), jnp.float32)
-    im = jnp.asarray(rng.standard_normal((rows, n_p)), jnp.float32)
-    hr = jnp.asarray(rng.standard_normal(n_p), jnp.float32)
-    hi = jnp.asarray(rng.standard_normal(n_p), jnp.float32)
-    Wr = jnp.asarray(rng.standard_normal((rows, m)), jnp.float32)
-    Wi = jnp.asarray(rng.standard_normal((rows, m)), jnp.float32)
+def _mk(rng, *shape):
+    return jnp.asarray(rng.standard_normal(shape), jnp.float32)
 
-    fused = lambda a, b: pf.fft_chirp_forward_split(a, b, hr, hi, m, -1)
+
+@pytest.mark.parametrize("n,sign", [(521, -1), (521, +1), (1031, -1)])
+def test_bluestein_grad(rng, n, sign):
+    """jax.grad through the composed Bluestein (prime n) vs jnp.fft."""
+    from fft_wgpu_tpu.ops.bluestein import fft_bluestein_split
+
+    rows = 4
+    re, im, Wr, Wi = (_mk(rng, rows, n) for _ in range(4))
+    chirp = lambda a, b: fft_bluestein_split(a, b, sign)
 
     def composed(a, b):
-        x = jax.lax.complex(a * hr - b * hi, a * hi + b * hr)
-        X = jnp.fft.fft(x, n=m, axis=-1)  # fft(n=m) zero-pads
+        x = jax.lax.complex(a, b)
+        X = jnp.fft.fft(x, axis=-1) if sign == -1 \
+            else jnp.fft.ifft(x, axis=-1) * n
         return jnp.real(X), jnp.imag(X)
 
-    _close(_grads(fused, re, im, Wr, Wi),
-           _grads(composed, re, im, Wr, Wi), 1e-4, "chirp fwd")
-    # forward numerics too (same tolerance class)
-    _close(jax.jit(fused)(re, im), composed(re, im), 1e-4, "chirp fwd val")
+    _close(_grads(chirp, re, im, Wr, Wi),
+           _grads(composed, re, im, Wr, Wi), 1e-4, f"bluestein {n}")
+    _close(jax.jit(chirp)(re, im), composed(re, im), 1e-4,
+           f"bluestein val {n}")
 
 
-@pytest.mark.parametrize("n_out", [512, 256])
-def test_chirp_inverse_grad(fake_tpu, rng, n_out):
-    """y = g .* (scale * FFT_sign(h .* x))[..., :n_out] — the Bluestein
-    (n_out == m) and CZT narrow-store (n_out < m) configurations."""
-    rows, m = 8, 512
-    sc = 1.0 / m
-    re = jnp.asarray(rng.standard_normal((rows, m)), jnp.float32)
-    im = jnp.asarray(rng.standard_normal((rows, m)), jnp.float32)
-    hr = jnp.asarray(rng.standard_normal(m), jnp.float32)
-    hi = jnp.asarray(rng.standard_normal(m), jnp.float32)
-    gr = jnp.asarray(rng.standard_normal(n_out), jnp.float32)
-    gi = jnp.asarray(rng.standard_normal(n_out), jnp.float32)
-    Wr = jnp.asarray(rng.standard_normal((rows, n_out)), jnp.float32)
-    Wi = jnp.asarray(rng.standard_normal((rows, n_out)), jnp.float32)
+def test_czt_grad(rng):
+    """jax.grad through czt (chirp, pad, FFT, filter, IFFT, chirp) vs the
+    same z-transform as a dense complex matrix."""
+    import fft_wgpu_tpu as ftt
 
-    fused = lambda a, b: pf.fft_chirp_inverse_split(
-        a, b, hr, hi, gr, gi, n_out, +1, sc)
+    n, m = 96, 64
+    w = np.exp(-2j * np.pi * 0.21 / m)
+    a = np.exp(2j * np.pi * 0.03)
+    k = np.arange(m)[:, None]
+    j = np.arange(n)[None, :]
+    M = (a ** (-j) * w ** (j * k)).astype(np.complex64)   # [m, n]
+    re, im = _mk(rng, 3, n), _mk(rng, 3, n)
+    Wr, Wi = _mk(rng, 3, m), _mk(rng, 3, m)
 
-    def composed(a, b):
-        x = jax.lax.complex(a * hr - b * hi, a * hi + b * hr)
-        X = jnp.fft.ifft(x, axis=-1)[..., :n_out]  # ifft == sc*FFT_{+1}
-        return (jnp.real(X) * gr - jnp.imag(X) * gi,
-                jnp.real(X) * gi + jnp.imag(X) * gr)
+    def chirp(p, q):
+        Z = ftt.czt(jax.lax.complex(p, q), m=m, w=w, a=a)
+        return jnp.real(Z), jnp.imag(Z)
 
-    _close(_grads(fused, re, im, Wr, Wi),
-           _grads(composed, re, im, Wr, Wi), 1e-4, f"chirp inv {n_out}")
-    _close(jax.jit(fused)(re, im), composed(re, im), 1e-4,
-           f"chirp inv val {n_out}")
+    def dense(p, q):
+        Z = jnp.matmul(jax.lax.complex(p, q), jnp.asarray(M.T),
+                       precision=jax.lax.Precision.HIGHEST)
+        return jnp.real(Z), jnp.imag(Z)
+
+    _close(_grads(chirp, re, im, Wr, Wi),
+           _grads(dense, re, im, Wr, Wi), 1e-4, "czt")
 
 
-def test_prod_c2r_grad(fake_tpu, rng):
-    """The fused product-C2R (fftconvolve epilogue) carries a
-    custom_vjp whose backward differentiates the composed form — grads
-    through the fused path must equal grads through the composed path
-    (both operands)."""
-    from fft_wgpu_tpu.ops.rfft import (irfft_last_split,
-                                       irfft_prod_last_split)
+@pytest.mark.parametrize("n", [512, 511])
+def test_prod_c2r_grad(rng, n):
+    """real(IRFFT(A .* B)) — the fftconvolve epilogue — differentiated in
+    all four operands vs the same map on jnp.fft."""
+    from fft_wgpu_tpu.ops.rfft import irfft_last_split
 
-    n = 512
-    bins = 384  # pad_bins(512)
-    rows = 4
-    Ar = jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32)
-    Ai = jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32)
-    Br = jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32)
-    Bi = jnp.asarray(rng.standard_normal((rows, bins)), jnp.float32)
-    # pad columns past Nyquist must be zero (serving-form contract)
-    z = jnp.zeros((rows, bins - (n // 2 + 1)), jnp.float32)
-    Ar = jnp.concatenate([Ar[:, : n // 2 + 1], z], axis=1)
-    Ai = jnp.concatenate([Ai[:, : n // 2 + 1], z], axis=1)
-    Br = jnp.concatenate([Br[:, : n // 2 + 1], z], axis=1)
-    Bi = jnp.concatenate([Bi[:, : n // 2 + 1], z], axis=1)
-    W = jnp.asarray(rng.standard_normal((rows, n)), jnp.float32)
+    rows, bins = 4, n // 2 + 1
+    Ar, Ai, Br, Bi = (_mk(rng, rows, bins) for _ in range(4))
+    W = _mk(rng, rows, n)
 
-    def loss_fused(a, b, c, d):
-        return jnp.sum(W * irfft_prod_last_split(a, b, c, d, n, 1.0 / n,
-                                                 padded_in=True))
+    def loss(a, b, c, d):
+        y = irfft_last_split(a * c - b * d, a * d + b * c, n, 1.0 / n)
+        return jnp.sum(W * y)
 
-    def loss_composed(a, b, c, d):
+    def loss_ref(a, b, c, d):
         pr = a * c - b * d
-        pi = a * d + b * c
-        return jnp.sum(W * irfft_last_split(pr, pi, n, 1.0 / n,
-                                            padded_in=True))
+        pi = (a * d + b * c).at[..., 0].set(0.0)
+        if n % 2 == 0:
+            pi = pi.at[..., n // 2].set(0.0)
+        return jnp.sum(W * jnp.fft.irfft(jax.lax.complex(pr, pi), n=n,
+                                         axis=-1))
 
-    gf = jax.grad(loss_fused, argnums=(0, 1, 2, 3))(Ar, Ai, Br, Bi)
-    gc = jax.grad(loss_composed, argnums=(0, 1, 2, 3))(Ar, Ai, Br, Bi)
+    gf = jax.grad(loss, argnums=(0, 1, 2, 3))(Ar, Ai, Br, Bi)
+    gc = jax.grad(loss_ref, argnums=(0, 1, 2, 3))(Ar, Ai, Br, Bi)
     for g1, g2, tag in zip(gf, gc, "abcd"):
         err = float(np.linalg.norm(np.asarray(g1) - np.asarray(g2))
                     / max(np.linalg.norm(np.asarray(g2)), 1e-30))
         assert err < 1e-4, f"prod-C2R grad d{tag}: {err:.3e}"
-    # values too
-    err = abs(float(loss_fused(Ar, Ai, Br, Bi))
-              - float(loss_composed(Ar, Ai, Br, Bi)))
+    err = abs(float(loss(Ar, Ai, Br, Bi)) - float(loss_ref(Ar, Ai, Br, Bi)))
     assert err < 1e-2
 
 
-def test_bluestein_end_to_end_grad(fake_tpu, rng):
-    """jax.grad through the PUBLIC prime-length fft (both fused chirp
-    kernels composed) vs jnp.fft on the same loss."""
-    from fft_wgpu_tpu.ops.bluestein import fft_bluestein_split
+def test_public_prime_fft_grad(rng):
+    """jax.grad through the PUBLIC prime-length fft vs jnp.fft."""
+    import fft_wgpu_tpu as ftt
 
-    rows, n = 4, 521  # prime: always the Bluestein path
-    re = jnp.asarray(rng.standard_normal((rows, n)), jnp.float32)
-    im = jnp.asarray(rng.standard_normal((rows, n)), jnp.float32)
-    Wr = jnp.asarray(rng.standard_normal((rows, n)), jnp.float32)
-    Wi = jnp.asarray(rng.standard_normal((rows, n)), jnp.float32)
+    rows, n = 4, 521
+    re, im, Wr, Wi = (_mk(rng, rows, n) for _ in range(4))
 
-    fused = lambda a, b: fft_bluestein_split(a, b, -1)
+    def public(a, b):
+        X = ftt.fft(jax.lax.complex(a, b))
+        return jnp.real(X), jnp.imag(X)
 
     def composed(a, b):
         X = jnp.fft.fft(jax.lax.complex(a, b), axis=-1)
         return jnp.real(X), jnp.imag(X)
 
-    _close(_grads(fused, re, im, Wr, Wi),
-           _grads(composed, re, im, Wr, Wi), 1e-4, "bluestein e2e")
+    _close(_grads(public, re, im, Wr, Wi),
+           _grads(composed, re, im, Wr, Wi), 1e-4, "public prime fft")

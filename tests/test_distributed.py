@@ -2,7 +2,7 @@
 
 The fake-backend mechanism the reference lacks: pencil/slab decompositions
 and the distributed four-step run on 8 virtual devices, validating the
-all-to-all corner turns without TPU hardware.
+all-to-all corner turns without the cards.
 """
 
 import jax
@@ -123,7 +123,7 @@ def test_irfft3d_norms(rng, assert_close):
         assert_close(back, x, what=f"rfft3d roundtrip norm={norm}")
 
 def test_fft1d_distributed_replan_and_fallback(rng, assert_close):
-    # VERDICT round 1: non-divisible factor choices must re-plan (both
+    # non-divisible factor choices must re-plan (both
     # factors multiples of the mesh size) or fall back to a replicated
     # transform instead of raising.
     m = meshlib.make_mesh()  # 8 devices
@@ -141,7 +141,7 @@ def test_fft1d_distributed_replan_and_fallback(rng, assert_close):
 
 
 def test_fft3d_overlap_chunks(rng, assert_close):
-    """Chunk-pipelined FFT->a2a (ICI/compute overlap) is bit-compatible
+    """Chunk-pipelined FFT->a2a (transfer/compute overlap) is bit-compatible
     with the unpipelined schedule and numpy."""
     from fft_wgpu_tpu.parallel import pencil
 
@@ -201,13 +201,13 @@ def test_rfft3d_batched_roundtrip(rng, assert_close):
 
 
 class TestHybridMesh:
-    def test_single_slice_fallback_shape(self):
+    def test_single_host_shape(self):
         m = meshlib.make_hybrid_mesh()
         assert m.devices.shape == (1, 8)
-        assert m.axis_names == ("dcn", "ici")
+        assert m.axis_names == ("hosts", "nvlink")
 
     def test_fft3d_on_hybrid_minor_axis(self, rng, assert_close):
-        # pencil transform with the corner turns on the all-ICI minor
+        # pencil transform with the corner turns on the one-host minor
         # axis: relabel the hybrid mesh's axes into the pencil names
         devs = list(np.asarray(meshlib.make_hybrid_mesh().devices).ravel())
         m = meshlib.make_mesh((2, 4), ("px", "py"), devs)
@@ -216,13 +216,13 @@ class TestHybridMesh:
             pencil.ifft3d(pencil.fft3d(x, m), m)))
         assert_close(got, x, tol=1e-5)
 
-    def test_uneven_slices_rejected(self, monkeypatch):
+    def test_uneven_hosts_rejected(self, monkeypatch):
         devs = jax.devices()
 
         class D:
-            def __init__(self, d, s):
+            def __init__(self, d, h):
                 self._d = d
-                self.slice_index = s
+                self.process_index = h
 
             def __getattr__(self, k):
                 return getattr(self._d, k)
@@ -231,23 +231,25 @@ class TestHybridMesh:
         with pytest.raises(ValueError):
             meshlib.make_hybrid_mesh(devices=fake)
 
-    def test_two_fake_slices_grouping(self):
+    @pytest.mark.parametrize("hosts", [2, 4, 8])
+    def test_fake_hosts_grouping(self, hosts):
         devs = jax.devices()
 
         class D:
-            def __init__(self, d, s):
+            def __init__(self, d, h):
                 self._d = d
-                self.slice_index = s
+                self.process_index = h
 
             def __getattr__(self, k):
                 return getattr(self._d, k)
 
-        # interleave the slice labels; the builder must group them
-        fake = [D(d, i % 2) for i, d in enumerate(devs)]
+        # interleave the process_index labels; the builder must group
+        # each host's devices into one mesh row
+        fake = [D(d, i % hosts) for i, d in enumerate(devs)]
         m = meshlib.make_hybrid_mesh(devices=fake)
-        assert m.devices.shape == (2, 4)
-        assert all(d.slice_index == 0 for d in m.devices[0])
-        assert all(d.slice_index == 1 for d in m.devices[1])
+        assert m.devices.shape == (hosts, len(devs) // hosts)
+        for r in range(hosts):
+            assert all(d.process_index == r for d in m.devices[r])
 
 
 def test_fno3d_dp_tp_training_step(rng, assert_close):
@@ -340,15 +342,30 @@ def test_rfft3d_bf16_comm_dtype(rng):
 
 
 def test_pencil_model_comm_bytes():
-    """The ICI cost model halves the wire floor for bf16 turns and leaves
+    """The link cost model halves the wire floor for bf16 turns and leaves
     the compute floor alone."""
     from fft_wgpu_tpu.utils.roofline import pencil_fft3d_model
 
-    f32 = pencil_fft3d_model(512, (4, 2), hbm_bw=0.819e12, ici_bw=7e10)
-    bf16 = pencil_fft3d_model(512, (4, 2), hbm_bw=0.819e12, ici_bw=7e10,
+    f32 = pencil_fft3d_model(512, (4, 2), hbm_bw=3.35e12, link_bw=4.5e11)
+    bf16 = pencil_fft3d_model(512, (4, 2), hbm_bw=3.35e12, link_bw=4.5e11,
                               comm_bytes=4.0)
-    assert abs(bf16["ici_s"] - f32["ici_s"] / 2) < 1e-12
+    assert abs(bf16["link_s"] - f32["link_s"] / 2) < 1e-12
     assert bf16["compute_s"] == f32["compute_s"]
+
+
+def test_pencil_model_h100_by_kind():
+    """With no explicit rates the model reads the card's published HBM
+    and NVLink peaks; on a 2x2 mesh each of the 4 corner turns sends half
+    of the local slice over 450 GB/s."""
+    from fft_wgpu_tpu.utils.roofline import pencil_fft3d_model
+
+    class H100:
+        device_kind = "NVIDIA H100 80GB HBM3"
+
+    r = pencil_fft3d_model(1024, (2, 2), device=H100())
+    local = 8.0 * 1024 ** 3 / 4
+    assert abs(r["compute_s"] - 6 * local / 3.35e12) < 1e-12
+    assert abs(r["link_s"] - 4 * local * 0.5 / 4.5e11) < 1e-12
 
 
 def test_fft1d_distributed_bf16_comm(rng):
@@ -419,10 +436,10 @@ def test_rfft3d_transposed_roundtrip(rng, assert_close):
 def test_fft3d_overlap_schedule_structure():
     """The chunked FFT->a2a pipeline must reach the compiler as
     INDEPENDENT per-chunk all-to-alls interleaved with per-chunk FFT
-    compute (VERDICT r2 weak #6).  On TPU those become async start/done
-    pairs the scheduler overlaps with the next chunk's compute; the
+    compute.  On the GPU those become async start/done pairs the
+    scheduler overlaps with the next chunk's compute; the
     hardware-free proof is (a) the lowered module interleaves
-    dot-blocks with a2a-blocks >= chunks times per pipelined pair, and
+    FFT-blocks with a2a-blocks >= chunks times per pipelined pair, and
     (b) the optimizer keeps the per-chunk a2as separate (op count
     scales with chunks) instead of merging them back into one turn."""
     import re as _re
@@ -465,8 +482,8 @@ def test_fft3d_overlap_schedule_structure():
     # the chunked module alternates compute/a2a at least 2*chunks times
     assert txt4.count("all_to_all") == 20, txt4.count("all_to_all")
     assert txt1.count("all_to_all") == 8, txt1.count("all_to_all")
-    b4 = blocks(txt4, "all_to_all", "dot_general")
-    b1 = blocks(txt1, "all_to_all", "dot_general")
+    b4 = blocks(txt4, "all_to_all", "call @fft")
+    b1 = blocks(txt1, "all_to_all", "call @fft")
     assert b4.count("A") >= 9, b4   # 4+4 chunk turns + restoring turns
     assert b1.count("A") == 3, b1   # Z-turn, Y-turn, restoring turns
 

@@ -14,10 +14,10 @@ def crand(rng, *shape):
 
 
 def test_choose_factors():
-    # >= 2^21 pins the rows pass to the balanced kernel's 4096 sweet spot
-    assert fourstep.choose_factors(1 << 22) == (1024, 4096)
+    # powers of two split as evenly as the exponent allows (n1 <= n2)
+    assert fourstep.choose_factors(1 << 22) == (2048, 2048)
     assert fourstep.choose_factors(1 << 24) == (4096, 4096)
-    assert fourstep.choose_factors(1 << 21) == (512, 4096)
+    assert fourstep.choose_factors(1 << 21) == (1024, 2048)
     assert fourstep.choose_factors(32768) == (128, 256)
     assert fourstep.choose_factors(120) == (10, 12)
 

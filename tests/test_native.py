@@ -38,17 +38,6 @@ def test_native_tables_match_numpy_f64():
     assert native.factorize(262, 128) is None  # 2*131
 
 
-@pytest.mark.skipif(native.get_lib() is None, reason="no C++ toolchain")
-def test_native_plan_choice():
-    # (executor, n1, n2) decisions must mirror the python planner
-    assert native.plan_choice(64, 128, 128, 8192, 512) == ("direct", 1, 64)
-    assert native.plan_choice(4096, 128, 128, 8192, 512) == ("pallas", 32, 128)
-    assert native.plan_choice(1 << 20, 128, 128, 8192, 512) == (
-        "fourstep", 1024, 1024)
-    assert native.plan_choice(1000, 128, 128, 8192, 512)[0] == "xla"
-    assert native.plan_choice(4099, 128, 128, 8192, 512)[0] == "xla"  # prime->bluestein via xla
-
-
 # --------------------------------------------------------------------- #
 # planar codec (one-pass threaded split/merge)
 # --------------------------------------------------------------------- #

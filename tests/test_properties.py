@@ -59,33 +59,37 @@ def test_linearity_under_jit(rng, assert_close):
     assert_close(f(x, y), np.fft.fft(x) + 2.0 * np.fft.fft(y))
 
 
-def test_bigfft_properties(rng, assert_close):
-    """Linearity + Parseval + shift theorem for the whole-row big kernel
-    (interpret mode)."""
+@pytest.mark.parametrize("executor,n", [
+    ("lax", 1 << 15), ("fourstep", 1 << 15), ("xla", 1 << 12),
+    ("lax", 4093), ("lax", 6000),
+])
+def test_executor_properties(executor, n, rng, assert_close):
+    """Linearity, Parseval and the shift theorem for one row through each
+    executor, at large, prime and composite n."""
     import jax.numpy as jnp
 
-    from fft_wgpu_tpu.ops import bigfft
+    from fft_wgpu_tpu.plan.plan import Plan
 
-    n = 1 << 15
+    p = Plan(n, executor=executor)
     x = (rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))
          ).astype(np.complex64)
     y = (rng.standard_normal((1, n)) + 1j * rng.standard_normal((1, n))
          ).astype(np.complex64)
 
     def F(z):
-        rr, ri = bigfft.fft_big_split(jnp.asarray(z.real), jnp.asarray(z.imag),
-                                      -1, interpret=True)
+        rr, ri = p._execute_split(jnp.asarray(z.real), jnp.asarray(z.imag),
+                                  -1, None)
         return np.asarray(rr) + 1j * np.asarray(ri)
 
     # linearity
-    assert_close(F(2 * x + 3 * y), 2 * F(x) + 3 * F(y), what="bigfft linear")
+    assert_close(F(2 * x + 3 * y), 2 * F(x) + 3 * F(y), what="linear")
     # Parseval
     X = F(x)
     assert abs(np.sum(np.abs(X) ** 2) / n - np.sum(np.abs(x) ** 2)) \
         / np.sum(np.abs(x) ** 2) < 1e-5
     # shift theorem: x[m - s] <-> X[k] * exp(-2pi i k s / n)
-    s = 12345
+    s = 1234 % n
     xs = np.roll(x, s, axis=-1)
     k = np.arange(n)
     assert_close(F(xs), X * np.exp(-2j * np.pi * k * s / n),
-                 what="bigfft shift thm")
+                 what="shift thm")

@@ -1,8 +1,8 @@
 """R2C / C2R transforms vs numpy (new capability vs the C2C-only reference)."""
 
-import numpy as np
-
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 import fft_wgpu_tpu as ftt
@@ -73,89 +73,40 @@ def test_hfft_ihfft(norm, rng, assert_close):
     assert_close(ftt.ihfft(x, norm=norm), np.fft.ihfft(x, norm=norm or "backward"))
 
 
-def test_rfft_pallas_kernel_interpret(rng, assert_close):
-    """Single-pass Pallas R2C kernel (the TPU fast path) vs numpy."""
-    from fft_wgpu_tpu.ops import pallas_fft as pf
+@pytest.mark.parametrize("n,rows,scale", [
+    (1024, 4, None), (512, 130, None), (1024, 8, 1024**-0.5),
+    (1000, 3, None), (4095, 2, None), (7, 5, 0.5), (1, 2, None),
+    (4093, 2, None),
+])
+def test_rfft_last_split_matches_numpy(n, rows, scale, rng, assert_close):
+    """R2C through lax's RFFT for even, odd, prime and length-1 rows."""
+    from fft_wgpu_tpu.ops.rfft import rfft_last_split
 
-    for n, rows in [(1024, 4), (512, 130)]:
-        x = rng.standard_normal((rows, n)).astype(np.float32)
-        Xr, Xi = pf.rfft_rows_split(jnp.asarray(x), interpret=True)
-        got = np.asarray(Xr) + 1j * np.asarray(Xi)
-        assert_close(got, np.fft.rfft(x, axis=-1), what=f"pallas r2c n={n}")
-    # folded scale (ortho)
-    x = rng.standard_normal((8, 1024)).astype(np.float32)
-    Xr, Xi = pf.rfft_rows_split(jnp.asarray(x), 1024**-0.5, interpret=True)
-    got = np.asarray(Xr) + 1j * np.asarray(Xi)
-    assert_close(got, np.fft.rfft(x, axis=-1, norm="ortho"),
-                 what="pallas r2c ortho")
-
-
-def test_irfft_pallas_kernel_interpret(rng, assert_close):
-    """Single-pass flip-free Pallas C2R kernel vs numpy."""
-    from fft_wgpu_tpu.ops import pallas_fft as pf
-
-    for n, rows in [(256, 4), (1024, 3), (2048, 130)]:
-        X = (rng.standard_normal((rows, n // 2 + 1))
-             + 1j * rng.standard_normal((rows, n // 2 + 1))
-             ).astype(np.complex64)
-        out = pf.irfft_rows_split(jnp.asarray(X.real), jnp.asarray(X.imag),
-                                  n, 1.0 / n, interpret=True)
-        assert_close(np.asarray(out), np.fft.irfft(X, n=n, axis=-1),
-                     what=f"pallas c2r n={n}")
+    x = rng.standard_normal((rows, n)).astype(np.float32)
+    Xr, Xi = jax.jit(lambda v: rfft_last_split(v, scale))(jnp.asarray(x))
+    want = np.fft.rfft(x, axis=-1) * (1.0 if scale is None else scale)
+    assert Xr.shape == (rows, n // 2 + 1)
+    assert_close(np.asarray(Xr) + 1j * np.asarray(Xi), want,
+                 what=f"r2c n={n}")
 
 
-def test_r2c_balanced_kernel_interpret(rng, assert_close):
-    """Balanced-split R2C kernel (real-specialized VPU stage 1)."""
-    from fft_wgpu_tpu.ops import pallas_fft as pf
+@pytest.mark.parametrize("n,rows", [
+    (256, 4), (1024, 3), (2048, 130), (15, 4), (1001, 2), (2, 3),
+])
+@pytest.mark.parametrize("scale", [None, "backward"])
+def test_irfft_last_split_matches_numpy(n, rows, scale, rng, assert_close):
+    """C2R through lax's IRFFT with an explicit total output scale; the
+    imaginary parts of DC (and Nyquist for even n) are discarded."""
+    from fft_wgpu_tpu.ops.rfft import irfft_last_split
 
-    # production entries (2048 is in _BALANCED_R2C) plus an injected small
-    # n to keep interpret-mode cheap while covering the routing machinery
-    x = rng.standard_normal((12, 2048)).astype(np.float32)
-    Xr, Xi = pf.rfft_rows_split(jnp.asarray(x), interpret=True)
-    got = np.asarray(Xr) + 1j * np.asarray(Xi)
-    assert_close(got, np.fft.rfft(x, axis=-1), what="balanced r2c n=2048")
-
-    # NOTE: 512 IS a production _BALANCED_R2C entry — the old
-    # inject-then-del here REMOVED it for the rest of the session,
-    # breaking any later nfft=512 fused-kernel test that ran after this
-    # file (masked for months by alphabetical collection order).
-    saved = pf._BALANCED_R2C.get(512)
-    pf._BALANCED_R2C[512] = (16, 32, (4, 4))
-    try:
-        x = rng.standard_normal((130, 512)).astype(np.float32)
-        Xr, Xi = pf.rfft_rows_split(jnp.asarray(x), 512**-0.5,
-                                    interpret=True)
-        got = np.asarray(Xr) + 1j * np.asarray(Xi)
-        assert_close(got, np.fft.rfft(x, axis=-1, norm="ortho"),
-                     what="balanced r2c n=512 ortho")
-    finally:
-        if saved is None:
-            pf._BALANCED_R2C.pop(512, None)
-        else:
-            pf._BALANCED_R2C[512] = saved
-
-
-def test_c2r_balanced_kernel_interpret(rng, assert_close):
-    """Balanced-split C2R kernel (sublane-flip Hermitian extension)."""
-    from fft_wgpu_tpu.ops import pallas_fft as pf
-
-    for n, spec, rows in [(512, (16, 32), 130), (1024, (32, 32), 4)]:
-        saved = pf._BALANCED_C2R.get(n)  # 512/1024 ARE production
-        pf._BALANCED_C2R[n] = spec       # entries: restore, never del
-        try:
-            X = (rng.standard_normal((rows, n // 2 + 1))
-                 + 1j * rng.standard_normal((rows, n // 2 + 1))
-                 ).astype(np.complex64)
-            out = pf.irfft_rows_split(jnp.asarray(X.real),
-                                      jnp.asarray(X.imag),
-                                      n, 1.0 / n, interpret=True)
-            assert_close(np.asarray(out), np.fft.irfft(X, n=n, axis=-1),
-                         what=f"balanced c2r n={n}")
-        finally:
-            if saved is None:
-                pf._BALANCED_C2R.pop(n, None)
-            else:
-                pf._BALANCED_C2R[n] = saved
+    X = (rng.standard_normal((rows, n // 2 + 1))
+         + 1j * rng.standard_normal((rows, n // 2 + 1))).astype(np.complex64)
+    total = None if scale is None else 1.0 / n
+    out = jax.jit(lambda a, b: irfft_last_split(a, b, n, total))(
+        jnp.asarray(X.real), jnp.asarray(X.imag))
+    want = np.fft.irfft(X, n=n, axis=-1) * (n if scale is None else 1.0)
+    assert out.shape == (rows, n)
+    assert_close(np.asarray(out), want, what=f"c2r n={n}")
 
 
 @pytest.mark.parametrize("norm", [None, "ortho", "forward"])
